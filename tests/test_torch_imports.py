@@ -1,0 +1,58 @@
+"""The port imports neither JAX nor the JAX package.
+
+The runtime check runs in a subprocess: this test process already has JAX
+loaded (tests/conftest.py imports it first). The AST scan covers import
+statements the runtime check might not reach (function-local imports).
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "realtime_analytics_tpu_torch"
+SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_every_port_module_imports_without_jax():
+    code = """
+import importlib, pkgutil, sys
+import realtime_analytics_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "realtime_analytics_tpu" or m.startswith("realtime_analytics_tpu."))
+print(len(names), bad)
+assert not bad, bad
+assert len(names) >= 30, names
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imported_names(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_no_jax_import_statement_anywhere_in_the_port():
+    assert len(SOURCES) > 30
+    offenders = []
+    for path in SOURCES:
+        for name in _imported_names(path):
+            root = name.split(".")[0]
+            if root in ("jax", "jaxlib") or root == "realtime_analytics_tpu":
+                offenders.append(f"{path.relative_to(REPO)}: {name}")
+    assert not offenders, offenders
