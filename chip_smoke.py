@@ -8,29 +8,46 @@ Run from the root of a checkout, on a machine with one card:
 It imports nothing of JAX and nothing of the JAX package. Phases, in order:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
-2. build every kernel of the main path from ``realtime_analytics_tpu_torch/
-   csrc`` with nvcc for sm_90a (build seconds, ``-Xptxas -v`` lines);
-3. each kernel (B1 row gather, B2 head decode, B3 fused stem) against its
-   plain PyTorch version on the card, at the main path's shapes (N=32, 640
-   input, bf16; B3 also fp32), timed with CUDA events next to its plain
-   version, the one PyTorch call that computes the same function where
-   there is one, and its bound (the larger of bytes over 3.35 TB/s and
-   operations over the dtype's dense peak, H100 SXM data sheet);
+2. build every kernel from ``realtime_analytics_tpu_torch/csrc`` with nvcc
+   for sm_90a (build seconds, ``-Xptxas -v`` lines);
+3. each kernel against its plain PyTorch version on the card, at the shapes
+   its paths give it (B1 row gather, B2 head decode, B3 fused stem: N=32,
+   640 input, bf16, B3 also fp32; B4 letterbox: 32 x 1080p -> 640 (H
+   select), 32 x 720p -> 640 (H mean2), 32 x 1520x2688 -> 640 (H
+   fractional), all bf16, and 32 x 1080p -> 224x224 fp32, the ResNet
+   stretch), timed with CUDA events next to its plain version, the one
+   PyTorch call that computes the same function where there is one, and
+   its bound (the larger of bytes over 3.35 TB/s and operations over the
+   dtype's dense peak, H100 SXM data sheet);
 4. the main path: ``TorchYoloEngine`` (YOLOv8n, 640, bf16, bucket 32,
    seeded He-scaled weights) on 32 synthetic 1080p frames through
-   ``predict_arrays`` (host pick -> selected step), with every kernel's
-   launch counter reset just before and read just after; held against the
-   same engine with the kernels off (bf16 model outputs within the repo's
-   bf16 fidelity bound; bf16 detections with B1 + B2 off and fp32
-   detections with every kernel off, frame by frame); step time, frames/s
-   and peak memory;
-5. the pipeline: ``AnalyticsPipeline`` with 32 pooled ``synthetic://``
-   1080p streams at 25 fps for about 15 s;
-6. the ``{"kernels": [...]}`` line, the card line, and last
+   ``predict_arrays`` (host pick -> selected step), held against the same
+   engine with the kernels off (bf16 model outputs within the repo's bf16
+   fidelity bound; bf16 detections with B1 + B2 off and fp32 detections
+   with every kernel off, frame by frame); step time, frames/s and peak
+   memory;
+5. the YOLO device-resize step: the same engine with ``host_resize: off``
+   on 32 synthetic 1280x720 frames (full frames -> B4 letterbox -> forward),
+   held against ``pallas_preprocess: off``;
+6. ResNet-50 (224, 1000 classes, bucket 32, seeded weights) on 32
+   synthetic 1080p frames with ``host_resize: off`` (B4 stretch), bf16 and
+   fp32, top-5 against ``pallas_preprocess: off``; one step with
+   ``host_resize: on`` beside it;
+7. the four temporal families (CNN-LSTM and ConvGRU at 224, 3D-CNN and
+   SlowFast at 112; T = 16, 400 classes) on 4 clips of 16 synthetic 1080p
+   frames with ``host_resize: off``, top-5 against ``pallas_preprocess:
+   off``;
+8. the pipelines: ``AnalyticsPipeline`` with 32 pooled ``synthetic://``
+   1080p streams at 25 fps on YOLOv8n for about 15 s, then 8 such streams
+   on ResNet-50 with ``host_resize: off`` for about 5 s;
+9. the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
-Any failure exits non-zero without the last line; so does a machine with no
-visible CUDA card, or a directory without the package.
+Every path of phases 4-8 runs with the launch counters set to 0 just
+before and read just after; each fails unless the kernels it runs were
+launched. A kernel's ``launches`` in the kernels line is its sum over
+those paths. Any failure exits non-zero without the last line; so does a
+machine with no visible CUDA card, or a directory without the package.
 """
 
 from __future__ import annotations
@@ -226,9 +243,95 @@ def check_stem(gen):
                 bound_ms=bf["bound_ms"], bound_by=bf["bound_by"], library_ms=None)
 
 
+def letterbox_bound(spec, n: int, dtype: torch.dtype):
+    """(bound ms, binds, bytes, flops) of B4 on ``n`` frames: each source
+    row that a tap with a nonzero weight touches, read once; the canvas
+    written once; about 15 fp32 operations per content value."""
+    from realtime_analytics_tpu_torch.ops.letterbox import bilinear_taps
+
+    i0, i1, w = bilinear_taps(spec.src_h, spec.new_h)
+    rows = len(np.union1d(i0[w < 1], i1[w > 0]))
+    esz = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (n * rows * spec.src_w * 3 + n * spec.dst_h * spec.dst_w * 3 * esz
+              + 12 * (spec.new_h + spec.new_w))
+    flops = 15.0 * n * spec.new_h * spec.new_w * 3
+    t_ms, by = bound(nbytes, flops, torch.float32)
+    return t_ms, by, nbytes, flops, rows
+
+
+def check_letterbox(gen):
+    """B4 against its plain version, one case per H mode of the TPU kernel
+    and the ResNet stretch. Held: the pad exactly 114/255; the content
+    within one uint8 level (plus one bf16 ulp in bf16) of the plain
+    version, on under 1% of the pixels (both run the same tables in the
+    same fp32 order, so they should agree bit for bit)."""
+    import torch.nn.functional as F
+
+    from realtime_analytics_tpu_torch.ops.letterbox import (
+        letterbox,
+        letterbox_plain,
+        stretch_spec,
+    )
+    from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
+
+    cases = (("select", (1080, 1920), (640, 640), False, torch.bfloat16),
+             ("mean2", (720, 1280), (640, 640), False, torch.bfloat16),
+             ("matmul", (1520, 2688), (640, 640), False, torch.bfloat16),
+             ("stretch", (1080, 1920), (224, 224), True, torch.float32))
+    rows = {}
+    for name, src, dst, stretch, dtype in cases:
+        frames = torch.randint(0, 256, (N, *src, 3), generator=gen, device="cuda",
+                               dtype=torch.uint8)
+        spec = stretch_spec(src, dst) if stretch else letterbox_spec(src, dst)
+        got, want = letterbox(frames, spec, dtype), letterbox_plain(frames, spec, dtype)
+        torch.cuda.synchronize()
+        content = torch.zeros(dst, dtype=torch.bool, device="cuda")
+        content[spec.pad_top:spec.pad_top + spec.new_h,
+                spec.pad_left:spec.pad_left + spec.new_w] = True
+        # the pad: bit-equal to the plain version's (114 x fp32(1/255), as
+        # the reference computes it), and 114/255 to the output's precision
+        pad = got[:, ~content].float()  # empty for the stretch
+        pad_exact = bool((got[:, ~content] == want[:, ~content]).all()) and bool(
+            ((pad - 114.0 / 255.0).abs()
+             <= (2.0 ** -10 if dtype == torch.bfloat16 else 1e-7)).all())
+        del pad
+        diff = (got.float() - want.float()).abs()[:, content]
+        err = diff.max().item()
+        share = (diff.amax(-1) > 0).float().mean().item()
+        tol = 1.0 / 255.0 + (2.0 ** -8 if dtype == torch.bfloat16 else 1e-6)
+        log(f"B4 {name} {src}->{dst} {str(dtype)[6:]}: pad exact {pad_exact}, max "
+            f"|content| err {err:.4g} (tol {tol:.4g}), pixels differing {share:.5f} (< 0.01)")
+        assert pad_exact and err <= tol and share < 0.01, f"B4 {name} disagrees"
+        ms = cuda_ms(lambda: letterbox(frames, spec, dtype), iters=20)
+        plain_ms = cuda_ms(lambda: letterbox_plain(frames, spec, dtype), iters=5, warmup=1)
+        nchw = frames.permute(0, 3, 1, 2).float()  # the resize alone, no round/pad/flip
+        lib_ms = cuda_ms(lambda: F.interpolate(nchw, size=(spec.new_h, spec.new_w),
+                                               mode="bilinear", align_corners=False),
+                         iters=10, warmup=2)
+        del nchw, got, want
+        b_ms, b_by, nbytes, flops, tapped = letterbox_bound(spec, N, dtype)
+        rows[name] = dict(src=list(src), dst=list(dst), dtype=str(dtype)[6:],
+                          max_abs_err=err, pixels_differing=share, ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                          bound_by=b_by, bytes=nbytes, flops=flops, rows_tapped=tapped)
+    log("B4 " + json.dumps(rows))
+    yolo = rows["mean2"]  # the YOLO device-resize step's shape (phase 5)
+    return dict(name="letterbox", route="cuda",
+                source="realtime_analytics_tpu_torch/csrc/letterbox.cu",
+                replaces="realtime_analytics_tpu/ops/pallas_preprocess.py:66",
+                max_abs_err=max(r["max_abs_err"] for r in rows.values()),
+                ms=yolo["ms"], plain_ms=yolo["plain_ms"], bound_ms=yolo["bound_ms"],
+                bound_by=yolo["bound_by"], library_ms=yolo["library_ms"])
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
+
+
+def require_launched(path: str, launches, names) -> None:
+    for name in names:
+        assert launches[name] > 0, f"kernel {name} was not launched on the {path}"
 
 
 def detector_config(**over):
@@ -294,8 +397,7 @@ def run_engine(params, frames):
     res = eng.predict_arrays(frames)  # THE main-path run
     launches = _cuda.LAUNCHES.snapshot()
     log(f"main path launches {json.dumps(launches)}")
-    for name, count in launches.items():
-        assert count > 0, f"kernel {name} was not launched on the main path"
+    require_launched("main path", launches, ("row_gather", "decode_v8", "fused_stem"))
     b = res.boxes_xyxy
     assert b.shape == (N, 300, 4) and np.isfinite(b).all() and np.isfinite(res.scores).all()
     assert (res.num_valid > 0).all(), "no detections on a frame at conf 0.005"
@@ -351,11 +453,231 @@ def run_engine(params, frames):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the pipeline
+# phases 5-7: the paths that run B4
 # ---------------------------------------------------------------------------
 
 
-def run_pipeline(params, seconds: float = 15.0):
+def timed_ms(fn, n: int):
+    """Host-clock ms of ``fn`` (which ends in a device->host copy), median
+    and min of ``n`` calls."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times)
+
+
+def run_device_resize(params, frames):
+    """The YOLO device-resize step on full 1280x720 frames: B4 letterbox
+    (H and W mean2: 720p -> 640x360 content), forward with the plain stem
+    weights, NMS."""
+    from realtime_analytics_tpu_torch.engine.detector import TorchYoloEngine
+    from realtime_analytics_tpu_torch.ops import _cuda
+    from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
+
+    eng = TorchYoloEngine(detector_config(host_resize="off"), params=params)
+    spec = letterbox_spec(frames.shape[1:3], eng.input_hw)
+    assert not eng.host_prepare(frames, frames.shape[1:3])[1], "not the device-resize step"
+    eng.predict_arrays(frames)
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.reset()
+    res = eng.predict_arrays(frames)
+    launches = _cuda.LAUNCHES.snapshot()
+    log(f"device-resize path launches {json.dumps(launches)}")
+    require_launched("device-resize path", launches, ("letterbox", "fused_stem"))
+    assert np.isfinite(res.boxes_xyxy).all() and (res.num_valid > 0).all()
+
+    # bf16 model outputs, B4 on vs off, within the bf16 fidelity bound. At
+    # this geometry both letterboxes compute (a + b) / 2 on both axes,
+    # which is exact in fp32, so their inputs must be bit-equal.
+    off = TorchYoloEngine(detector_config(host_resize="off", pallas_preprocess="off"),
+                          params=params)
+
+    def outputs(e):
+        with torch.inference_mode():
+            x = e._device_letterbox(torch.from_numpy(frames).cuda(), spec)
+            out = e.model(x, reduce_scores=True, stem_weights=e._stem_plain)
+        return x, {k: v.float() for k, v in out.items()}
+
+    (x_on, got), (x_off, want) = outputs(eng), outputs(off)
+    input_d = (x_on.float() - x_off.float()).abs().max().item()
+    conf_d = (got["conf"] - want["conf"]).abs().max().item()
+    box_med = (got["boxes_xyxy"] - want["boxes_xyxy"]).abs().median().item()
+    log(f"device resize, bf16, B4 on vs off: max |input| delta {input_d:.3g} (0: the "
+        f"mean2 taps are exact), max |conf| delta {conf_d:.4g} (< 0.02), median |box| "
+        f"delta {box_med:.4g} px (< 1)")
+    assert input_d == 0.0 and conf_d < 0.02 and box_med < 1.0, "B4 device resize drifts"
+    del x_on, x_off, got, want, off
+    # fp32 detections, B4 on vs off: the same input bits, so only the two
+    # engines' cuDNN algorithm choices may differ: held to 1e-5 / 1e-3 px
+    on32, off32 = (TorchYoloEngine(detector_config(
+        host_resize="off", precision="fp32", confidence_threshold=0.25, pallas_preprocess=m),
+        params=params) for m in ("auto", "off"))
+    _, score32, box32 = hold("device resize, fp32 detections, B4 on vs off",
+                             on32.predict_arrays(frames), off32.predict_arrays(frames),
+                             score_tol=1e-5, box_tol=1e-3)
+    del on32, off32
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, step_min = timed_ms(lambda: eng.predict_arrays(frames), 10)
+    summary = dict(src=list(frames.shape[1:3]), step_ms_median=step_ms, step_ms_min=step_min,
+                   frames_per_s=N / step_ms * 1e3,
+                   max_memory_allocated_mib=torch.cuda.max_memory_allocated() / 2**20,
+                   bf16_input_max_delta=input_d, bf16_conf_max_delta=conf_d,
+                   bf16_box_median_delta_px=box_med, fp32_score_max_delta=score32,
+                   fp32_box_max_delta_px=box32)
+    return launches, summary
+
+
+def step_breakdown(eng, host_batch, resized: bool):
+    """Where a full-frame step's time goes: the upload of ``host_batch``
+    (pageable, host clock, synchronised) and the device step on the
+    resident batch (CUDA events, mean of 3)."""
+    t0 = time.perf_counter()
+    x = torch.from_numpy(host_batch).cuda()
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    with torch.inference_mode():
+        device_ms = cuda_ms(lambda: eng._step(x, resized), iters=3, warmup=1)
+    return dict(upload_mb=host_batch.nbytes / 1e6, upload_ms=upload_ms,
+                device_step_ms=device_ms)
+
+
+def top5_agreement(a, b):
+    """Frames (or clips) whose top-5 classes are equal in order, frames
+    whose top-1 is equal, and the largest score delta."""
+    (sa, ca), (sb, cb) = a, b
+    return (int((ca == cb).all(axis=1).sum()), int((ca[:, 0] == cb[:, 0]).sum()),
+            float(np.abs(sa - sb).max()))
+
+
+def resnet_config(**over):
+    from realtime_analytics_tpu_torch.config import DetectorConfig
+
+    kw = dict(model_type="resnet", model_path="resnet50-chip-smoke-seeded", device="cuda",
+              input_size=[224, 224], resnet_num_classes=1000, resnet_top_k=5,
+              confidence_threshold=1e-6, max_batch_size=N, batch_buckets=[N],
+              warmup=False, host_resize="off", precision="bf16")
+    kw.update(over)
+    return DetectorConfig(**kw)
+
+
+def run_resnet(params, frames):
+    """ResNet-50 on full 1080p frames: B4 stretch to 224x224 fp32, then
+    normalize and the forward; bf16 and fp32; top-5 against
+    ``pallas_preprocess: off`` (the unrounded bilinear resize)."""
+    from realtime_analytics_tpu_torch.engine.detector import TorchResNetEngine
+    from realtime_analytics_tpu_torch.ops import _cuda
+
+    out, total = {}, {}
+    for prec in ("bf16", "fp32"):
+        eng = TorchResNetEngine(resnet_config(precision=prec), params=params)
+        eng.classify(frames)
+        torch.cuda.synchronize()
+        _cuda.LAUNCHES.reset()
+        got = eng.classify(frames)
+        launches = _cuda.LAUNCHES.snapshot()
+        require_launched(f"ResNet-50 {prec} path", launches, ("letterbox",))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        assert got[0].shape == (N, 5) and np.isfinite(got[0]).all()
+        off = TorchResNetEngine(resnet_config(precision=prec, pallas_preprocess="off"),
+                                params=params)
+        top5, top1, score_d = top5_agreement(got, off.classify(frames))
+        log(f"ResNet-50 {prec}, B4 on vs off: top-5 equal on {top5}/{N} frames, top-1 on "
+            f"{top1}/{N}, max |raw score| delta {score_d:.4g}")
+        if prec == "fp32":
+            # B4 rounds to uint8 levels, the off path does not: the inputs
+            # differ by at most half a level (0.0087 after normalizing)
+            assert top5 == N and score_d <= 0.05, "ResNet-50 fp32 top-5 disagree"
+        del off
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, step_min = timed_ms(lambda: eng.classify(frames), 5)
+        out[prec] = dict(step_ms_median=step_ms, step_ms_min=step_min,
+                         frames_per_s=N / step_ms * 1e3,
+                         max_memory_allocated_mib=torch.cuda.max_memory_allocated() / 2**20,
+                         top5_equal_frames=top5, top1_equal_frames=top1,
+                         max_score_delta=score_d, **step_breakdown(eng, frames, False))
+        del eng
+    host = TorchResNetEngine(resnet_config(host_resize="on"), params=params)
+    host.classify(frames)
+    step_ms, step_min = timed_ms(lambda: host.classify(frames), 3)
+    out["bf16_host_resize_on"] = dict(step_ms_median=step_ms, step_ms_min=step_min,
+                                      frames_per_s=N / step_ms * 1e3)
+    log(f"ResNet-50 launches (bf16 + fp32 runs) {json.dumps(total)}")
+    return total, out
+
+
+def run_temporal(frames):
+    """Each temporal family on 4 clips of 16 full 1080p frames: B4 stretch
+    of the 64 frames, normalize, the clip forward; top-5 against
+    ``pallas_preprocess: off``."""
+    from realtime_analytics_tpu_torch.config import DetectorConfig, StreamConfig
+    from realtime_analytics_tpu_torch.engine.temporal import TorchTemporalEngine
+    from realtime_analytics_tpu_torch.models.temporal import build_temporal
+    from realtime_analytics_tpu_torch.models.weights import temporal_synthetic_params
+    from realtime_analytics_tpu_torch.ops import _cuda
+    from realtime_analytics_tpu_torch.types import FramePacket
+
+    t_len, clips = 16, 4
+    seqs = [[FramePacket(stream=StreamConfig(name=f"cam-{c}", url="synthetic://"),
+                         frame=frames[(c * t_len + t) % len(frames)], frame_id=t,
+                         timestamp=t / 25.0) for t in range(t_len)] for c in range(clips)]
+    out, total = {}, {}
+    for family, hw in (("cnn_lstm", 224), ("conv_gru", 224), ("3d_cnn", 112),
+                       ("slow_fast", 112)):
+        params = temporal_synthetic_params(build_temporal(family, 400), seed=0)
+
+        def cfg(**over):
+            kw = dict(model_type=family, model_path=f"{family}-chip-smoke-seeded",
+                      device="cuda", input_size=[hw, hw], num_action_classes=400,
+                      sequence_length=t_len, batch_buckets=[clips], max_batch_size=clips,
+                      host_resize="off", warmup=False, confidence_threshold=1e-6)
+            kw.update(over)
+            return DetectorConfig(**kw)
+
+        eng = TorchTemporalEngine(cfg(), params=params)
+        eng.predict_clips(seqs)
+        torch.cuda.synchronize()
+        _cuda.LAUNCHES.reset()
+        got = eng.predict_clips(seqs)
+        launches = _cuda.LAUNCHES.snapshot()
+        require_launched(f"{family} clip path", launches, ("letterbox",))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        want = TorchTemporalEngine(cfg(pallas_preprocess="off"), params=params).predict_clips(seqs)
+
+        def arrays(dets):
+            return (np.array([[d.confidence for d in c] for c in dets]),
+                    np.array([[d.class_id for d in c] for c in dets]))
+
+        assert all(len(c) == 5 for c in got), "a clip lost its top-5"
+        top5, top1, score_d = top5_agreement(arrays(got), arrays(want))
+        step_ms, step_min = timed_ms(lambda: eng.predict_clips(seqs), 3)
+        t0 = time.perf_counter()
+        stacked = np.stack([np.stack([p.frame for p in s]) for s in seqs])
+        stack_ms = (time.perf_counter() - t0) * 1e3
+        out[family] = dict(input=hw, launches=launches["letterbox"],
+                           clip_step_ms_median=step_ms, clip_step_ms_min=step_min,
+                           top5_equal_clips=top5, top1_equal_clips=top1,
+                           max_prob_delta=score_d, stack_ms=stack_ms,
+                           **step_breakdown(eng, stacked, False))
+        del stacked
+        log(f"{family} ({hw}x{hw}, bf16): launches {launches['letterbox']}, top-5 equal on "
+            f"{top5}/{clips} clips against B4 off (reported), clip step {step_ms:.1f} ms")
+        del eng
+    return total, out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the pipelines
+# ---------------------------------------------------------------------------
+
+
+def run_pipeline(detector, n_streams: int, seconds: float):
+    """``AnalyticsPipeline`` with ``n_streams`` pooled synthetic 1080p
+    streams at 25 fps for about ``seconds``; the launch counters are set to
+    0 just before and read just after."""
     from realtime_analytics_tpu_torch.config import (
         KafkaSinkConfig,
         PipelineConfig,
@@ -364,12 +686,9 @@ def run_pipeline(params, seconds: float = 15.0):
         StreamConfig,
         TrackerConfig,
     )
+    from realtime_analytics_tpu_torch.ops import _cuda
     from realtime_analytics_tpu_torch.pipeline import AnalyticsPipeline
 
-    wdir = ROOT / "build" / "chip_smoke"
-    wdir.mkdir(parents=True, exist_ok=True)
-    weights = wdir / "yolov8n_seeded.npz"
-    np.savez(weights, __pytree__=np.array(params, dtype=object))
     cfg = PipelineConfig(
         streams=[
             StreamConfig(
@@ -377,11 +696,9 @@ def run_pipeline(params, seconds: float = 15.0):
                 url=f"synthetic://?width=1920&height=1080&boxes=4&seed={i}&pool=10",
                 target_fps=25, warmup_seconds=0.0, batch_size=2, adaptive_fps=False,
             )
-            for i in range(N)
+            for i in range(n_streams)
         ],
-        detector=detector_config(model_path=str(weights), confidence_threshold=0.25,
-                                 batch_buckets=None, warmup=True,
-                                 warmup_source_hw=[1080, 1920]),
+        detector=detector,
         tracker=TrackerConfig(),
         kafka=KafkaSinkConfig(enabled=True, transport="memory"),
         prometheus=PrometheusConfig(enabled=False),
@@ -390,9 +707,11 @@ def run_pipeline(params, seconds: float = 15.0):
         stats_interval_seconds=3600,
     )
     pipeline = AnalyticsPipeline(cfg)
+    _cuda.LAUNCHES.reset()
     t0 = time.perf_counter()
     asyncio.run(pipeline.run_for(seconds))
     wall = time.perf_counter() - t0
+    launches = _cuda.LAUNCHES.snapshot()
     per_stream = [w.health.total_frames for w in pipeline.workers]
     stats = pipeline.batchers["__default__"].stats
     lat = sorted(t * 1e3 for w in pipeline.workers for t in w.health.recent_processing_times)
@@ -403,11 +722,20 @@ def run_pipeline(params, seconds: float = 15.0):
         shed=stats.shed, sink_messages=pipeline.kafka.messages_sent,
         latency_ms_p50=lat[len(lat) // 2] if lat else None,
         latency_ms_p99=lat[min(len(lat) - 1, int(len(lat) * 0.99))] if lat else None,
-        latency_samples=len(lat),
+        latency_samples=len(lat), launches=launches,
     )
     assert min(per_stream) > 0, f"a stream processed no frames: {per_stream}"
     assert stats.frames > 0 and pipeline.kafka.messages_sent > 0
-    return out
+    return launches, out
+
+
+def saved_tree(name: str, tree) -> str:
+    """Seeded weights as a native params-tree .npz the pipeline loads."""
+    wdir = ROOT / "build" / "chip_smoke"
+    wdir.mkdir(parents=True, exist_ok=True)
+    path = wdir / name
+    np.savez(path, __pytree__=np.array(tree, dtype=object))
+    return str(path)
 
 
 def main() -> int:
@@ -435,23 +763,49 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
-        kernels = [check_gather(gen), check_decode(gen), check_stem(gen)]
+        kernels = [check_gather(gen), check_decode(gen), check_stem(gen),
+                   check_letterbox(gen)]
         torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
     from realtime_analytics_tpu_torch.ingest.synthetic import SyntheticSource
-    from realtime_analytics_tpu_torch.models.weights import synthetic_params
+    from realtime_analytics_tpu_torch.models.resnet import build_resnet
+    from realtime_analytics_tpu_torch.models.weights import (
+        resnet_synthetic_params,
+        synthetic_params,
+    )
     from realtime_analytics_tpu_torch.models.yolo import build_yolo
 
     params = synthetic_params(build_yolo("yolov8", "n", 80), seed=0)
     frames = np.stack([SyntheticSource(width=1920, height=1080, boxes=4, seed=i).read()[1]
                        for i in range(N)])
-    launches, engine = run_engine(params, frames)
+    frames720 = np.stack([SyntheticSource(width=1280, height=720, boxes=4, seed=i).read()[1]
+                          for i in range(N)])
+    paths = {}
+    paths["main"], engine = run_engine(params, frames)
     log("engine " + json.dumps(dict(engine, card=card)))
-    pipe = run_pipeline(params)
-    log("pipeline " + json.dumps(dict(pipe, card=card)))
+    paths["device_resize"], resize = run_device_resize(params, frames720)
+    log("device_resize " + json.dumps(dict(resize, card=card)))
+    resnet_params = resnet_synthetic_params(build_resnet("resnet50", 1000), seed=0)
+    paths["resnet"], resnet = run_resnet(resnet_params, frames)
+    log("resnet50 " + json.dumps(dict(resnet, card=card)))
+    paths["temporal"], temporal = run_temporal(frames)
+    log("temporal " + json.dumps(dict(temporal, card=card)))
+    torch.cuda.empty_cache()
 
+    paths["pipeline"], pipe = run_pipeline(detector_config(
+        model_path=saved_tree("yolov8n_seeded.npz", params), confidence_threshold=0.25,
+        batch_buckets=None, warmup=True, warmup_source_hw=[1080, 1920]), N, 15.0)
+    log("pipeline " + json.dumps(dict(pipe, card=card)))
+    paths["resnet_pipeline"], rpipe = run_pipeline(resnet_config(
+        model_path=saved_tree("resnet50_seeded.npz", resnet_params), max_batch_size=8,
+        batch_buckets=[8], warmup=True, warmup_source_hw=[1080, 1920]), 8, 5.0)
+    require_launched("ResNet-50 pipeline", paths["resnet_pipeline"], ("letterbox",))
+    log("resnet50_pipeline " + json.dumps(dict(rpipe, card=card)))
+
+    log("launches by path " + json.dumps(paths))
     for row in kernels:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = sum(p[row["name"]] for p in paths.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))

@@ -2,8 +2,9 @@
 
 The same multi-stream realtime video analytics system as the JAX package
 beside it (``realtime_analytics_tpu``, the reference), rebuilt on PyTorch:
-32 concurrent video streams, YOLOv8 detection behind a cross-stream
-batcher, IOU tracking and Kafka/event-bus sinks. The package imports
+32 concurrent video streams, YOLOv8 detection, ResNet classification and
+four temporal action families behind a cross-stream batcher, IOU tracking
+and Kafka/event-bus sinks. The package imports
 nothing of JAX and nothing of the reference package; the host-side modules
 it needs (config, types, tracker, ingest, sinks, metrics, the C pixel pick)
 are its own copies.

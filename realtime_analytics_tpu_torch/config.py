@@ -251,8 +251,11 @@ class DetectorConfig:
     # CUDA tensor and the plain PyTorch version on a CPU tensor; "on" =
     # the same (the plain version is the CPU form of the kernel); "off" =
     # the plain layer-by-layer PyTorch path everywhere.
-    # Bilinear letterbox kernel (B4): not ported yet (ROADMAP.md). "on"
-    # raises on cuda; "auto" takes the plain preprocess and says so once.
+    # Bilinear letterbox / stretch kernel (B4, csrc/letterbox.cu). YOLO
+    # device-resize step: "auto" launches it when the letterbox resizes,
+    # "on" always. ResNet and temporal device steps: any value but "off"
+    # launches it on the card; "off" (and the CPU) takes the JAX package's
+    # unrounded bilinear resize.
     pallas_preprocess: str = "auto"  # auto | on | off
     pallas_gather: str = "auto"  # auto | on | off: NMS payload row gather (B1)
     # Fused v8 head decode: DFL softmax expectation + class max/argmax in
@@ -265,7 +268,7 @@ class DetectorConfig:
     host_resize: str = "auto"  # auto | on | off
     # Space-to-depth early backbone: a layout tactic for TPU lanes in the
     # reference. Accepted so one YAML drives both packages; a no-op on the
-    # port (logged once), ROADMAP.md Queue A item 16.
+    # port (logged once), ROADMAP.md Queue A ("TPU layout tactics").
     s2d_backbone: str = "auto"  # auto | on | off
     # Fused P1/P2 stem: YOLO nodes 0+1 in one kernel with the P1 tile in
     # shared memory (B3, csrc/stem.cu). "interpret" is accepted for YAML

@@ -1,10 +1,17 @@
 """The PyTorch inference engine.
 
-  * ``detector`` — the YOLO detection engine and the ``create_detector``
-    factory (reference-compatible routing; routes not ported yet raise
-    NotImplementedError naming ROADMAP.md)
+  * ``detector`` — the YOLO detection and ResNet classification engines
+    and the ``create_detector`` factory (reference-compatible routing;
+    routes not ported yet raise NotImplementedError naming ROADMAP.md)
+  * ``temporal`` — the clip engine of the four temporal families
   * ``batcher``  — the cross-stream dynamic batcher (asyncio)
 """
 
-from .detector import BaseDetector, TorchYoloEngine, create_detector  # noqa: F401
+from .detector import (  # noqa: F401
+    BaseDetector,
+    TorchResNetEngine,
+    TorchYoloEngine,
+    create_detector,
+)
+from .temporal import TorchTemporalEngine  # noqa: F401
 from .batcher import InferenceBatcher  # noqa: F401

@@ -1,11 +1,17 @@
-"""YOLO detection engine on PyTorch, one step per (bucket, source size).
+"""Detection and classification engines on PyTorch.
 
-Counterpart of ``realtime_analytics_tpu/engine/detector.py``
-(``JaxYoloEngine``). The chain per batch is the same:
+Counterpart of ``realtime_analytics_tpu/engine/detector.py``:
+``TorchYoloEngine`` (``JaxYoloEngine``), ``TorchResNetEngine``
+(``JaxResNetEngine``) and ``create_detector``, which also routes the
+temporal model types to ``engine/temporal.py``. The YOLO chain per batch is
+the same as the JAX package's:
 
     uint8 NHWC batch -> (host pixel pick) -> pad + cast on the card
         -> YOLOv8 forward (BGR->RGB and /255 folded into the stem weights)
         -> confidence/class masking -> batched NMS -> un-letterbox
+
+and, when no host pick or host resize applies, the device-resize step:
+full frames -> letterbox on the card (kernel B4) -> forward -> NMS.
 
 PyTorch runs eagerly, so a "step" is a closure over the static letterbox
 geometry, not a compiled program. Batches are still padded to the
@@ -13,8 +19,8 @@ configured buckets, so every call sees one of a few fixed shapes.
 
 Device rules: ``device: auto | cuda | cuda:N`` means the card and RAISES
 when none is visible; only ``device: cpu`` runs on the CPU. On the card the
-three ported kernels (B1 gather, B2 decode, B3 stem) launch under their
-``pallas_*`` knobs; on the CPU the same knobs take the kernels' plain
+ported kernels (B1 gather, B2 decode, B3 stem, B4 letterbox) launch under
+their ``pallas_*`` knobs; on the CPU the same knobs take the kernels' plain
 versions.
 
 Numerics: ``precision: fp32`` means fp32 — on the card the engine turns
@@ -35,11 +41,20 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..config import DetectorConfig, TEMPORAL_MODEL_TYPES
-from ..models.weights import load_yolo_checkpoint, params_from_jax
+from ..models.resnet import build_resnet, normalize_imagenet, variant_from_model_path
+from ..models.weights import (
+    load_resnet_checkpoint,
+    load_yolo_checkpoint,
+    params_from_jax,
+    resnet_params_from_jax,
+    resnet_synthetic_params,
+)
 from ..models.yolo import build_yolo, size_from_model_path
 from ..ops.boxes import unletterbox_boxes
+from ..ops.letterbox import letterbox, stretch_resize
 from ..ops.nms import batched_nms
 from ..ops.preprocess import integer_axis_reduction, letterbox_spec, preprocess_batch
 from ..types import BatchResult, Detection, FramePacket
@@ -114,20 +129,13 @@ class TorchYoloEngine(BaseDetector):
         if config.tiling:
             raise NotImplementedError("detector.tiling" + _NOT_PORTED)
         self.device = pick_device(config)
-        if self.device.type == "cuda":
-            # precision: fp32 means fp32: cuDNN convolutions default to TF32
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        fp32_means_fp32(self.device)
         self.model = build_yolo(
             config.model_type if config.model_type in ("yolov5", "yolov8") else "yolov8",
             size_from_model_path(config.model_path), config.num_classes,
         )
         self.input_hw: Tuple[int, int] = config.resolved_input_size
-        self.compute_dtype = (
-            torch.float32
-            if config.precision == "fp32" and not config.half
-            else torch.bfloat16
-        )
+        self.compute_dtype = compute_dtype_of(config)
         if params is None:
             params = load_yolo_checkpoint(self.model, config.model_path)
         if params is None:
@@ -168,7 +176,6 @@ class TorchYoloEngine(BaseDetector):
         self._bucket_cost_ms: Dict[Tuple[int, int], Dict[int, float]] = {}
         self.class_agnostic_nms = True  # reference NMS is class-agnostic
         self.last_infer_ms: float = 0.0
-        self._b4_note_logged = False
 
     # -- host side ------------------------------------------------------
 
@@ -225,14 +232,9 @@ class TorchYoloEngine(BaseDetector):
         if (spec.new_h, spec.new_w) == (spec.src_h, spec.src_w):
             return None
         try:
-            import cv2
+            return cv2_stretch(frames, (spec.new_h, spec.new_w))
         except ImportError:
             return None
-        out = np.empty((len(frames), spec.new_h, spec.new_w, 3), dtype=np.uint8)
-        for i, frame in enumerate(frames):
-            cv2.resize(frame, (spec.new_w, spec.new_h), dst=out[i],
-                       interpolation=cv2.INTER_LINEAR)
-        return out
 
     # -- device steps -----------------------------------------------------
 
@@ -279,25 +281,23 @@ class TorchYoloEngine(BaseDetector):
         out = self._forward_selected(self._pad_cast(sel_u8, spec))
         return self._finish(out, spec)
 
-    def _step_device_resize(self, frames_u8: torch.Tensor, spec):
-        """Over full frames [B, H, W, 3] uint8 BGR: plain device letterbox
-        (``preprocess_batch``), forward, NMS, un-letterbox."""
+    def _device_letterbox(self, frames_u8: torch.Tensor, spec) -> torch.Tensor:
+        """Full frames -> the letterboxed RGB [0, 1] model input, NHWC, as
+        JAX ``_build_step``: kernel B4 when ``pallas_preprocess`` is on, or
+        auto and the letterbox resizes (an identity geometry skips it);
+        else the plain ``preprocess_batch``. B4's wrapper takes its plain
+        version for a CPU tensor."""
         mode = self.config.pallas_preprocess
-        if self.device.type == "cuda":
-            if mode == "on":
-                raise NotImplementedError(
-                    "pallas_preprocess: on — the bilinear letterbox kernel "
-                    "(B4)" + _NOT_PORTED
-                )
-            if mode == "auto" and not self._b4_note_logged:
-                self._b4_note_logged = True
-                logger.info(
-                    "pallas_preprocess: auto — the letterbox kernel (B4) is "
-                    "not ported yet; the device resize takes the plain "
-                    "PyTorch preprocess"
-                )
-        x = preprocess_batch(frames_u8, spec=spec, out_dtype=self.compute_dtype,
-                             layout="NHWC")
+        needs_resize = (spec.new_h, spec.new_w) != (spec.src_h, spec.src_w)
+        if mode == "on" or (mode == "auto" and needs_resize):
+            return letterbox(frames_u8, spec, self.compute_dtype)
+        return preprocess_batch(frames_u8, spec=spec, out_dtype=self.compute_dtype,
+                                layout="NHWC")
+
+    def _step_device_resize(self, frames_u8: torch.Tensor, spec):
+        """Over full frames [B, H, W, 3] uint8 BGR: device letterbox (B4 or
+        plain), forward with the plain stem weights, NMS, un-letterbox."""
+        x = self._device_letterbox(frames_u8, spec)
         out = self.model(x, reduce_scores=True, stem_weights=self._stem_plain)
         return self._finish(out, spec)
 
@@ -417,18 +417,202 @@ class TorchYoloEngine(BaseDetector):
         return self.predict_packets([packet])[0]
 
 
+def compute_dtype_of(config: DetectorConfig) -> torch.dtype:
+    """fp32 when ``precision: fp32`` and not ``half``, else bf16 (the JAX
+    package's rule; ``half`` means the card's half type, bf16)."""
+    if config.precision == "fp32" and not config.half:
+        return torch.float32
+    return torch.bfloat16
+
+
+def fp32_means_fp32(device: torch.device) -> None:
+    """On the card, turn TF32 off: cuDNN convolutions default to it."""
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def bgr_unit_rgb(frames_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 BGR NHWC -> fp32 RGB in [0, 1] (the resized steps' cast)."""
+    return frames_u8.to(torch.float32).flip(-1) * (1.0 / 255.0)
+
+
+def stretch_unit_rgb(frames_u8: torch.Tensor, dst_hw: Tuple[int, int],
+                     kernel: bool) -> torch.Tensor:
+    """Full frames [B, H, W, 3] uint8 BGR -> fp32 RGB in [0, 1] at
+    ``dst_hw``, as the JAX ResNet and temporal device steps: kernel B4's
+    stretch (rounded to uint8 levels) when ``kernel``, else bilinear
+    ``F.interpolate`` with no rounding, then the flip and /255."""
+    if kernel:
+        return stretch_resize(frames_u8, dst_hw, torch.float32)
+    x = frames_u8.to(torch.float32).permute(0, 3, 1, 2)
+    x = F.interpolate(x, size=tuple(dst_hw), mode="bilinear", align_corners=False)
+    return x.permute(0, 2, 3, 1).flip(-1) * (1.0 / 255.0)
+
+
+def cv2_stretch(frames: Sequence[np.ndarray], dst_hw: Tuple[int, int],
+                out: Optional[np.ndarray] = None) -> np.ndarray:
+    """cv2 INTER_LINEAR stretch of each frame to ``dst_hw``, straight into
+    one uint8 batch buffer (the reference classifiers' host preprocess)."""
+    import cv2
+
+    th, tw = dst_hw
+    if out is None:
+        out = np.empty((len(frames), th, tw, 3), dtype=np.uint8)
+    for i, frame in enumerate(frames):
+        cv2.resize(frame, (tw, th), dst=out[i], interpolation=cv2.INTER_LINEAR)
+    return out
+
+
+class TorchResNetEngine(BaseDetector):
+    """ResNet classification engine (counterpart of ``JaxResNetEngine``).
+
+    Stretches without letterbox, ImageNet-normalizes and emits the top-K
+    classes as full-frame Detections. With ``host_resize`` active (auto =
+    on for the card) the stretch runs on the host with cv2 INTER_LINEAR,
+    as the reference classifier resizes, and only input-sized pixels cross
+    the link; the device step is then cast, flip, /255, normalize and the
+    forward. Otherwise the device step stretches the full frames: kernel
+    B4 on the card unless ``pallas_preprocess: off``, else the JAX
+    package's unrounded bilinear resize."""
+
+    def __init__(self, config: DetectorConfig, params: Optional[Dict] = None):
+        config.validate()
+        self.config = config
+        if config.mesh_shape:
+            raise NotImplementedError(
+                "detector.mesh_shape (multi-device) for the ResNet classifier" + _NOT_PORTED)
+        self.device = pick_device(config)
+        fp32_means_fp32(self.device)
+        self.model = build_resnet(variant_from_model_path(config.model_path),
+                                  config.resnet_num_classes)
+        self.input_hw: Tuple[int, int] = config.resolved_input_size
+        self.compute_dtype = compute_dtype_of(config)
+        if params is None:
+            params = load_resnet_checkpoint(self.model, config.model_path)
+        if params is None:
+            logger.warning(
+                "No loadable ResNet weights at '%s' — using seeded random "
+                "weights (seed 0).", config.model_path,
+            )
+            params = resnet_synthetic_params(self.model, seed=0)
+        resnet_params_from_jax(self.model, params)
+        self.model.to(device=self.device, dtype=self.compute_dtype,
+                      memory_format=torch.channels_last).eval()
+        self._bucket_cost_ms: Dict[Tuple[int, int], Dict[int, float]] = {}
+        self.last_infer_ms = 0.0
+
+    def _host_resize_active(self) -> bool:
+        return self.config.host_resize == "on" or (
+            self.config.host_resize == "auto" and self.device.type == "cuda"
+        )
+
+    def host_prepare(self, frames, src_hw: Tuple[int, int]):
+        """(prepared uint8 frames, resized: bool). With ``host_resize``
+        active the stretch to ``input_size`` runs here (cv2 INTER_LINEAR);
+        without cv2 the full frames go to the device step."""
+        if tuple(src_hw) != tuple(self.input_hw) and self._host_resize_active():
+            try:
+                return cv2_stretch(frames, self.input_hw), True
+            except ImportError:
+                return frames, False
+        return frames, False
+
+    def _classify_head(self, x: torch.Tensor):
+        """x: [B, th, tw, 3] fp32 RGB in [0, 1] -> (top-k scores, classes);
+        raw head outputs unless ``resnet_scores: softmax``."""
+        x = normalize_imagenet(x).to(self.compute_dtype)
+        logits = self.model(x).to(torch.float32)
+        k = min(self.config.resnet_top_k, logits.shape[-1])
+        scores = torch.softmax(logits, dim=-1) if self.config.resnet_scores == "softmax" else logits
+        return torch.topk(scores, k, dim=-1)
+
+    def _step(self, frames_u8: torch.Tensor, resized: bool):
+        if resized:
+            x = bgr_unit_rgb(frames_u8)
+        else:
+            kernel = self.config.pallas_preprocess != "off" and self.device.type == "cuda"
+            x = stretch_unit_rgb(frames_u8, self.input_hw, kernel)
+        return self._classify_head(x)
+
+    def _run_bucket(self, bucket: int, frames: np.ndarray, resized: bool):
+        """Pad to ``bucket`` frames, run the step, bring the top-k back."""
+        n = frames.shape[0]
+        if n < bucket:
+            frames = np.concatenate(
+                [frames, np.zeros((bucket - n, *frames.shape[1:]), frames.dtype)])
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+            scores, classes = self._step(x, resized)
+            scores, classes = scores.cpu().numpy(), classes.cpu().numpy()
+        self.last_infer_ms = (time.perf_counter() - t0) * 1e3
+        return scores[:n], classes[:n]
+
+    def warmup(self, src_hw: Tuple[int, int], buckets: Optional[Sequence[int]] = None):
+        """Run each bucket once, then time it (min of 3) for cost-aware
+        bucket selection, on the input ``classify`` will upload."""
+        buckets = buckets or self.config.resolved_buckets
+        probe, resized = self.host_prepare(np.zeros((1, *src_hw, 3), np.uint8), src_hw)
+        costs = self._bucket_cost_ms.setdefault(tuple(src_hw), {})
+        for b in buckets:
+            frames = np.zeros((b, *probe.shape[1:]), np.uint8)
+            self._run_bucket(b, frames, resized)
+            cost = float("inf")
+            for _ in range(3):
+                self._run_bucket(b, frames, resized)
+                cost = min(cost, self.last_infer_ms)
+            costs[b] = cost
+            logger.info("resnet warmup: bucket B=%d src=%s (host_resize=%s) step=%.1fms",
+                        b, src_hw, resized, cost)
+
+    def classify(self, frames) -> Tuple[np.ndarray, np.ndarray]:
+        """frames: same-resolution uint8 BGR frames (an array or a list) ->
+        (scores [N, k], classes [N, k]), best first."""
+        src_hw = tuple(frames[0].shape[:2])
+        prepared, resized = self.host_prepare(frames, src_hw)
+        if not resized:
+            prepared = np.stack(prepared) if isinstance(prepared, list) else prepared
+        # more frames than the largest bucket run unpadded, as in JAX
+        bucket = _cheapest_bucket(self.config.resolved_buckets, len(prepared),
+                                  self._bucket_cost_ms.get(src_hw, {}))
+        return self._run_bucket(bucket, prepared, resized)
+
+    def predict_packets(self, packets: Sequence[FramePacket]) -> List[List[Detection]]:
+        by_shape: Dict[Tuple[int, int], List[int]] = {}
+        for i, p in enumerate(packets):
+            by_shape.setdefault(tuple(p.frame.shape[:2]), []).append(i)
+        results: List[List[Detection]] = [[] for _ in packets]
+        for (h, w), idxs in by_shape.items():
+            scores, classes = self.classify([packets[i].frame for i in idxs])
+            for j, i in enumerate(idxs):
+                p = packets[i]
+                results[i] = [
+                    Detection(stream_name=p.stream.name, frame_id=p.frame_id,
+                              class_id=int(classes[j, r]), confidence=float(scores[j, r]),
+                              bbox_xyxy=(0.0, 0.0, float(w), float(h)))
+                    for r in range(scores.shape[1])
+                    if scores[j, r] >= self.config.confidence_threshold
+                ]
+        return results
+
+    def predict(self, packet: FramePacket) -> List[Detection]:
+        return self.predict_packets([packet])[0]
+
+
 def create_detector(config: DetectorConfig) -> BaseDetector:
-    """Factory with the reference's routing semantics (detector.py:54-96).
-    Only YOLOv8 detection is ported; every other route raises
-    NotImplementedError naming ROADMAP.md."""
+    """Factory with the reference's routing semantics (detector.py:54-96):
+    temporal model types -> ``TorchTemporalEngine``, resnet ->
+    ``TorchResNetEngine``, anything else -> ``TorchYoloEngine`` (YOLOv8).
+    Unported routes raise NotImplementedError naming ROADMAP.md."""
     if str(config.model_path).endswith(".rvae"):
         raise NotImplementedError("serving .rvae artifacts" + _NOT_PORTED)
     if config.model_type in TEMPORAL_MODEL_TYPES:
-        raise NotImplementedError(
-            f"temporal model_type {config.model_type!r}" + _NOT_PORTED
-        )
+        from .temporal import TorchTemporalEngine
+
+        return TorchTemporalEngine(config)
     if config.model_type == "resnet":
-        raise NotImplementedError("the ResNet classifier" + _NOT_PORTED)
+        return TorchResNetEngine(config)
     if config.backend not in ("torch", "cuda"):
         logger.info(
             "backend '%s' requested — serving it with the PyTorch engine",

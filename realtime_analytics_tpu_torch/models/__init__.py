@@ -1,9 +1,13 @@
 """Models as PyTorch modules (NCHW-logical, channels_last memory, OIHW
 weights, BatchNorm folded at load):
 
-  * ``yolo``    — YOLOv8 (anchor-free, DFL head); YOLOv5 is not ported yet
-  * ``weights`` — JAX params trees and Ultralytics state dicts -> modules
-  * ``layers``  — conv / SiLU / pool / upsample building blocks
+  * ``yolo``     — YOLOv8 (anchor-free, DFL head); YOLOv5 is not ported yet
+  * ``resnet``   — ResNet-18/34/50 classifiers
+  * ``temporal`` — CNN-LSTM, ConvGRU, 3D-CNN and SlowFast clip models
+  * ``weights``  — JAX params trees and torch state dicts -> modules
+  * ``layers``   — conv / dense / SiLU / pool / upsample building blocks
 """
 
+from .resnet import ResNetModel, build_resnet  # noqa: F401
+from .temporal import build_temporal  # noqa: F401
 from .yolo import YoloModel, build_yolo  # noqa: F401

@@ -12,11 +12,12 @@ turns TF32 off, so an fp32 conv on the card is true fp32).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def conv2d(
@@ -44,6 +45,70 @@ def conv_act(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
     """YOLO "Conv" block: conv + (folded BN) + SiLU."""
     y = conv2d(x, w, b, stride=stride, padding=padding)
     return silu(y) if act else y
+
+
+class ConvAct(nn.Module):
+    """Conv (OIHW weight) + folded-BN bias + optional SiLU (YOLO "Conv";
+    ``act=False`` is a plain conv). JAX params counterpart:
+    {"w": HWIO, "b": [cout]}."""
+
+    def __init__(self, cin: int, cout: int, k: int, s: int = 1,
+                 p: Optional[int] = None, act: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cout, cin, k, k), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
+        self.stride, self.padding, self.act = s, p, act
+
+    def forward(self, x: torch.Tensor, weight: Optional[torch.Tensor] = None):
+        w = self.weight if weight is None else weight
+        return conv_act(x, w, self.bias, stride=self.stride,
+                        padding=self.padding, act=self.act)
+
+    def load_tree(self, node: Mapping, path: str) -> None:
+        load_param(self.weight, np.asarray(node["w"], np.float32).transpose(3, 2, 0, 1), path)
+        load_param(self.bias, node["b"], path)
+
+    def to_tree(self) -> Dict[str, np.ndarray]:
+        return {"w": to_numpy(self.weight).transpose(2, 3, 1, 0).copy(),
+                "b": to_numpy(self.bias)}
+
+
+class Dense(nn.Module):
+    """``x @ w + b``. JAX params counterpart: {"w": [in, out], "b": [out]}.
+    The weights take the input's dtype, as JAX promotes a bf16 weight
+    against an fp32 input (the temporal heads run in fp32)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cout, cin), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+    def load_tree(self, node: Mapping, path: str) -> None:
+        load_param(self.weight, np.asarray(node["w"], np.float32).T, path)
+        load_param(self.bias, node["b"], path)
+
+    def to_tree(self) -> Dict[str, np.ndarray]:
+        return {"w": to_numpy(self.weight).T.copy(), "b": to_numpy(self.bias)}
+
+
+def load_param(param: torch.Tensor, value, path: str) -> None:
+    """Copy a numpy value into a parameter in place (keeping its dtype and
+    device); the shapes must match exactly."""
+    value = np.array(value, dtype=np.float32)  # a writable copy
+    if value.shape != tuple(param.shape):
+        raise ValueError(
+            f"{path}: tree shape {value.shape} does not match the module's "
+            f"{tuple(param.shape)}"
+        )
+    with torch.no_grad():
+        param.copy_(torch.from_numpy(value))
+
+
+def to_numpy(param: torch.Tensor) -> np.ndarray:
+    return param.detach().float().cpu().numpy().copy()
 
 
 def max_pool(x: torch.Tensor, k: int, stride: int = 1) -> torch.Tensor:

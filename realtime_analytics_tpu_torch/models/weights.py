@@ -1,4 +1,4 @@
-"""Weights for the PyTorch YOLO module.
+"""Weights for the PyTorch YOLO, ResNet and temporal modules.
 
 The interchange format is the JAX package's params tree as numpy arrays:
 ``{"layers": {"0": {"w": HWIO, "b": [O]}, "2": {"cv1": ..., "m": [...]},
@@ -21,22 +21,31 @@ Ultralytics checkpoint dict), a flat ``.npz`` with the same key names, or
 a native-pytree ``.npz``; a weights-``.onnx`` raises NotImplementedError
 until the ONNX reader is ported (ROADMAP.md). Anything unreadable -> None
 (the engine then uses a seeded random init, loudly).
+
+ResNet and the temporal models follow the same pattern:
+``resnet_params_from_jax`` / ``temporal_params_from_jax`` load a JAX tree,
+``resnet_params_from_state_dict`` (torchvision names, BN eps 1e-5) and
+``temporal_params_from_state_dict`` map torch state dicts, and
+``load_resnet_checkpoint`` / ``load_temporal_checkpoint`` read files.
+``load_tree`` and ``module_tree`` walk any of the modules against its tree.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from .yolo import ConvAct, YoloModel
+from .resnet import ResNetModel
+from .yolo import YoloModel
 
 logger = logging.getLogger(__name__)
 
 BN_EPS = 1e-3  # Ultralytics BatchNorm2d eps
+BN_EPS_TORCHVISION = 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -44,61 +53,51 @@ BN_EPS = 1e-3  # Ultralytics BatchNorm2d eps
 # ---------------------------------------------------------------------------
 
 
-def _walk(module: nn.Module, node, fn, path: str) -> None:
-    """Visit every ConvAct of ``module`` with its params-tree node."""
-    if isinstance(module, ConvAct):
-        fn(module, node, path)
+def load_tree(module: nn.Module, node, path: str) -> None:
+    """Load a params-tree node into ``module`` in place. A leaf module
+    (``ConvAct``, ``Dense``, the temporal ``Conv3d`` and ``LSTM``) takes
+    its node through ``load_tree``; a ModuleList maps onto a list, any
+    other module's children onto the keys of a dict. Every child must be in
+    the tree and every shape must match."""
+    if hasattr(module, "load_tree"):
+        module.load_tree(node, path)
         return
     if isinstance(module, nn.ModuleList):
         if len(node) != len(module):
             raise ValueError(f"{path}: tree has {len(node)} entries, module {len(module)}")
         for j, sub in enumerate(module):
-            _walk(sub, node[j], fn, f"{path}.{j}")
+            load_tree(sub, node[j], f"{path}.{j}")
         return
     for name, sub in module.named_children():
         if name not in node:
             raise KeyError(f"{path}.{name} missing from the params tree")
-        _walk(sub, node[name], fn, f"{path}.{name}")
+        load_tree(sub, node[name], f"{path}.{name}")
 
 
-@torch.no_grad()
+def module_tree(module: nn.Module):
+    """Inverse of ``load_tree``: the module's weights as a params tree
+    (numpy fp32, JAX layouts)."""
+    if hasattr(module, "to_tree"):
+        return module.to_tree()
+    if isinstance(module, nn.ModuleList):
+        return [module_tree(sub) for sub in module]
+    return {name: module_tree(sub) for name, sub in module.named_children()}
+
+
 def params_from_jax(model: YoloModel, tree: Mapping) -> YoloModel:
     """Load a JAX-layout params tree (numpy, HWIO) into ``model`` in place.
     Shapes must match exactly; values keep the module's dtype/device."""
-
-    def load(mod: ConvAct, node, path):
-        w = np.array(node["w"], dtype=np.float32).transpose(3, 2, 0, 1)
-        b = np.array(node["b"], dtype=np.float32)
-        if w.shape != tuple(mod.weight.shape) or b.shape != tuple(mod.bias.shape):
-            raise ValueError(
-                f"{path}: tree shapes {w.shape}/{b.shape} do not match the "
-                f"module's {tuple(mod.weight.shape)}/{tuple(mod.bias.shape)}"
-            )
-        mod.weight.copy_(torch.from_numpy(np.ascontiguousarray(w)))
-        mod.bias.copy_(torch.from_numpy(b))
-
     layers = tree["layers"]
     for name, mod in model.layers.items():
         if name not in layers:
             raise KeyError(f"layers.{name} missing from the params tree")
-        _walk(mod, layers[name], load, f"layers.{name}")
+        load_tree(mod, layers[name], f"layers.{name}")
     return model
 
 
 def params_to_tree(model: YoloModel) -> Dict:
     """The module's weights as a JAX-layout params tree (numpy fp32, HWIO)."""
-
-    def build(module: nn.Module):
-        if isinstance(module, ConvAct):
-            return {
-                "w": module.weight.detach().float().cpu().numpy().transpose(2, 3, 1, 0).copy(),
-                "b": module.bias.detach().float().cpu().numpy().copy(),
-            }
-        if isinstance(module, nn.ModuleList):
-            return [build(sub) for sub in module]
-        return {name: build(sub) for name, sub in module.named_children()}
-
-    return {"layers": {name: build(mod) for name, mod in model.layers.items()}}
+    return {"layers": {name: module_tree(mod) for name, mod in model.layers.items()}}
 
 
 def synthetic_params(model: YoloModel, seed: int = 0) -> Dict:
@@ -230,11 +229,7 @@ def load_yolo_checkpoint(model: YoloModel, path: str) -> Optional[Dict]:
     """Best-effort load of a YOLO checkpoint file into a params tree.
     Returns None when the file is missing, unreadable or of another layout."""
     if str(path).endswith(".onnx"):
-        raise NotImplementedError(
-            "weights-.onnx checkpoints need the ONNX initializer reader, "
-            "which is not ported to the PyTorch package yet (ROADMAP.md); "
-            "convert to .pt or a flat .npz"
-        )
+        raise _onnx_not_ported()
     try:
         sd = _read_state_dict(path)
     except Exception as exc:  # noqa: BLE001 — any unreadable file -> None
@@ -243,11 +238,7 @@ def load_yolo_checkpoint(model: YoloModel, path: str) -> Optional[Dict]:
     if sd is None:
         return None
     if "__pytree__" in sd:
-        params = sd["__pytree__"].item()
-        if _tree_shapes(params) != _tree_shapes(params_to_tree(model)):
-            logger.warning("pytree checkpoint %s does not match the model", path)
-            return None
-        return params
+        return _check_tree(model, sd["__pytree__"].item(), path)
     # Ultralytics full-model state dicts prefix everything with "model.".
     prefix = "model." if any(k.startswith("model.0.") for k in sd) else ""
     try:
@@ -281,3 +272,210 @@ def _read_state_dict(path: str) -> Optional[Mapping[str, np.ndarray]]:
     if hasattr(obj, "state_dict"):
         return {k: _np(v) for k, v in obj.float().state_dict().items()}
     return None
+
+
+def _check_tree(model: nn.Module, tree, path: str) -> Optional[Dict]:
+    """``tree`` when its shapes match the module's, else None (warned)."""
+    if _tree_shapes(tree) != _tree_shapes(module_tree(model)):
+        logger.warning("pytree checkpoint %s does not match the model", path)
+        return None
+    return tree
+
+
+def _onnx_not_ported() -> NotImplementedError:
+    return NotImplementedError(
+        "weights-.onnx checkpoints need the ONNX initializer reader, "
+        "which is not ported to the PyTorch package yet (ROADMAP.md); "
+        "convert to .pt or a flat .npz"
+    )
+
+
+def _seeded_tree(model: nn.Module, seed: int) -> Dict:
+    """Seeded weights for ``model`` as a params tree, from a
+    ``torch.Generator``: He-normal convs (HWIO / DHWIO, fan-in over every
+    axis but the last) with small biases, dense layers at 1/sqrt(in) with
+    zero biases, LSTM weights N(0, 0.05) as the JAX init draws them."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def randn(shape):
+        return torch.randn(tuple(shape), generator=gen, dtype=torch.float64).numpy()
+
+    def fill(node):
+        if isinstance(node, list):
+            return [fill(v) for v in node]
+        if "wx" in node:  # LSTM
+            return {"wx": (randn(node["wx"].shape) * 0.05).astype(np.float32),
+                    "wh": (randn(node["wh"].shape) * 0.05).astype(np.float32),
+                    "b": np.zeros_like(node["b"])}
+        if "w" not in node:
+            return {k: fill(v) for k, v in node.items()}
+        shape = node["w"].shape
+        fan_in = int(np.prod(shape[:-1]))
+        if len(shape) == 2:
+            w, b = randn(shape) / np.sqrt(fan_in), np.zeros(shape[-1])
+        else:
+            w, b = randn(shape) * np.sqrt(2.0 / fan_in), randn((shape[-1],)) * 0.05
+        return {"w": w.astype(np.float32), "b": b.astype(np.float32)}
+
+    return fill(module_tree(model))
+
+
+# ---------------------------------------------------------------------------
+# ResNet (torchvision layout)
+# ---------------------------------------------------------------------------
+
+
+def resnet_params_from_jax(model: ResNetModel, tree: Mapping) -> ResNetModel:
+    """Load a JAX ResNet params tree (numpy, HWIO; ``fc.w`` [in, out]) into
+    ``model`` in place."""
+    load_tree(model, tree, "resnet")
+    return model
+
+
+def resnet_synthetic_params(model: ResNetModel, seed: int = 0) -> Dict:
+    """Seeded He-scaled ResNet weights (``_seeded_tree``), with the last
+    conv of every residual branch scaled by 0.5 so the activations stay
+    bounded through the 16 blocks of ResNet-50."""
+    tree = _seeded_tree(model, seed)
+    last = "conv3" if model.bottleneck else "conv2"
+    for blocks in tree["layers"]:
+        for blk in blocks:
+            blk[last]["w"] *= np.float32(0.5)
+    return tree
+
+
+def resnet_params_from_state_dict(model: ResNetModel, sd: Mapping[str, np.ndarray]) -> Dict:
+    """Map a torchvision-named ResNet state dict onto the params tree,
+    every BatchNorm folded (``BN_EPS_TORCHVISION``)."""
+    eps = BN_EPS_TORCHVISION
+    params: Dict = {"stem": _fold_conv_bn(sd, "conv1", "bn1", eps=eps)}
+    layers: List[List[Dict]] = []
+    for stage_idx, n_blocks in enumerate(model.stages):
+        blocks = []
+        for b in range(n_blocks):
+            base = f"layer{stage_idx + 1}.{b}"
+            blk = {
+                "conv1": _fold_conv_bn(sd, f"{base}.conv1", f"{base}.bn1", eps=eps),
+                "conv2": _fold_conv_bn(sd, f"{base}.conv2", f"{base}.bn2", eps=eps),
+            }
+            if model.bottleneck:
+                blk["conv3"] = _fold_conv_bn(sd, f"{base}.conv3", f"{base}.bn3", eps=eps)
+            if f"{base}.downsample.0.weight" in sd:
+                blk["down"] = _fold_conv_bn(
+                    sd, f"{base}.downsample.0", f"{base}.downsample.1", eps=eps
+                )
+            blocks.append(blk)
+        layers.append(blocks)
+    params["layers"] = layers
+    params["fc"] = _t_dense(sd, "fc")
+    return params
+
+
+def load_resnet_checkpoint(model: ResNetModel, path: str) -> Optional[Dict]:
+    """A torchvision-named state dict (.pt / flat .npz) or a native
+    params-tree .npz. Anything unreadable or of another layout -> None."""
+    if str(path).endswith(".onnx"):
+        raise _onnx_not_ported()
+    try:
+        sd = _read_state_dict(path)
+        if sd is None:
+            return None
+        if "__pytree__" in sd:
+            return _check_tree(model, sd["__pytree__"].item(), path)
+        return resnet_params_from_state_dict(model, sd)
+    except Exception as exc:  # noqa: BLE001 — any unreadable file -> None
+        logger.warning("Could not load ResNet checkpoint %s: %s", path, exc)
+        return None
+
+
+# ---------------------------------------------------------------------------
+# Temporal models: torch-named state dicts (the JAX package's contract:
+# scripts/export_temporal_model.py names) -> params trees
+# ---------------------------------------------------------------------------
+
+
+def _t_bias(sd, name: str, cout: int) -> np.ndarray:
+    key = f"{name}.bias"
+    return _np(sd[key]).astype(np.float32) if key in sd else np.zeros(cout, np.float32)
+
+
+def _t_conv(sd, name: str) -> Dict[str, np.ndarray]:
+    """torch Conv2d (OIHW) -> {"w": HWIO, "b"}."""
+    w = _np(sd[f"{name}.weight"]).astype(np.float32)
+    return {"w": w.transpose(2, 3, 1, 0), "b": _t_bias(sd, name, w.shape[0])}
+
+
+def _t_conv3d(sd, name: str) -> Dict[str, np.ndarray]:
+    """torch Conv3d (OIDHW) -> {"w": DHWIO, "b"}."""
+    w = _np(sd[f"{name}.weight"]).astype(np.float32)
+    return {"w": w.transpose(2, 3, 4, 1, 0), "b": _t_bias(sd, name, w.shape[0])}
+
+
+def _t_dense(sd, name: str) -> Dict[str, np.ndarray]:
+    """torch Linear ([out, in]) -> {"w": [in, out], "b"}."""
+    return {"w": _np(sd[f"{name}.weight"]).astype(np.float32).T,
+            "b": _np(sd[f"{name}.bias"]).astype(np.float32)}
+
+
+def temporal_params_from_state_dict(model: nn.Module, sd: Mapping[str, np.ndarray]) -> Dict:
+    """Map a torch-named temporal state dict onto the model's params tree.
+    torch ``nn.LSTM`` packs its gates i, f, g, o along dim 0 — the order
+    the cell splits — so the LSTM maps by a transpose and the sum of its
+    two bias vectors."""
+    kind = type(model).__name__
+    if kind == "CNNLSTM":
+        return {
+            "encoder": {"c1": _t_conv(sd, "c1"), "c2": _t_conv(sd, "c2"),
+                        "c3": _t_conv(sd, "c3"), "proj": _t_dense(sd, "proj")},
+            "lstm": {
+                "wx": _np(sd["lstm.weight_ih_l0"]).astype(np.float32).T,
+                "wh": _np(sd["lstm.weight_hh_l0"]).astype(np.float32).T,
+                "b": (_np(sd["lstm.bias_ih_l0"]).astype(np.float32)
+                      + _np(sd["lstm.bias_hh_l0"]).astype(np.float32)),
+            },
+            "fc": _t_dense(sd, "fc"),
+        }
+    if kind == "ConvGRU":
+        tree = {n: _t_conv(sd, n) for n in ("stem", "zr", "hcand", "head")}
+        tree["fc"] = _t_dense(sd, "fc")
+        return tree
+    if kind == "CNN3D":
+        tree = {n: _t_conv3d(sd, n) for n in ("c1", "c2", "c3", "c4")}
+        tree["fc"] = _t_dense(sd, "fc")
+        return tree
+    if kind == "SlowFast":
+        return {
+            "slow": {f"c{j}": _t_conv3d(sd, f"slow.c{j}") for j in (1, 2, 3)},
+            "fast": {f"c{j}": _t_conv3d(sd, f"fast.c{j}") for j in (1, 2, 3)},
+            "fc": _t_dense(sd, "fc"),
+        }
+    raise ValueError(f"unsupported temporal model class: {kind}")
+
+
+def temporal_params_from_jax(model: nn.Module, tree: Mapping) -> nn.Module:
+    """Load a JAX temporal params tree (numpy; HWIO, DHWIO, dense [in, out],
+    LSTM wx/wh/b) into ``model`` in place."""
+    load_tree(model, tree, type(model).__name__)
+    return model
+
+
+def temporal_synthetic_params(model: nn.Module, seed: int = 0) -> Dict:
+    """Seeded He-scaled temporal weights (``_seeded_tree``)."""
+    return _seeded_tree(model, seed)
+
+
+def load_temporal_checkpoint(model: nn.Module, path: str) -> Optional[Dict]:
+    """A native params-tree .npz, a torch-named flat .npz, or a .pt state
+    dict. Anything unreadable or of another layout -> None."""
+    if str(path).endswith(".onnx"):
+        raise _onnx_not_ported()
+    try:
+        sd = _read_state_dict(path)
+        if sd is None:
+            return None
+        if "__pytree__" in sd:
+            return _check_tree(model, sd["__pytree__"].item(), path)
+        return temporal_params_from_state_dict(model, sd)
+    except Exception as exc:  # noqa: BLE001 — any unreadable file -> None
+        logger.warning("Could not load temporal checkpoint %s: %s", path, exc)
+        return None

@@ -34,7 +34,7 @@ from ..ops.stem import (
     prepare_stem,
     stem_geometry_ok,
 )
-from .layers import conv_act, make_divisible, max_pool, upsample2x
+from .layers import ConvAct, make_divisible, max_pool, upsample2x
 
 # ---------------------------------------------------------------------------
 # Graph spec (identical to the reference)
@@ -67,23 +67,6 @@ STRIDES = (8, 16, 32)
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
-
-
-class ConvAct(nn.Module):
-    """YOLO "Conv": conv (OIHW weight) + folded-BN bias + optional SiLU.
-    JAX params counterpart: {"w": HWIO, "b": [cout]}."""
-
-    def __init__(self, cin: int, cout: int, k: int, s: int = 1,
-                 p: Optional[int] = None, act: bool = True):
-        super().__init__()
-        self.weight = nn.Parameter(torch.zeros(cout, cin, k, k), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
-        self.stride, self.padding, self.act = s, p, act
-
-    def forward(self, x: torch.Tensor, weight: Optional[torch.Tensor] = None):
-        w = self.weight if weight is None else weight
-        return conv_act(x, w, self.bias, stride=self.stride,
-                        padding=self.padding, act=self.act)
 
 
 class Bottleneck(nn.Module):

@@ -43,7 +43,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 # the kernels of this package, by wrapper name
-KERNELS = ("row_gather", "decode_v8", "fused_stem")
+KERNELS = ("row_gather", "decode_v8", "fused_stem", "letterbox")
 
 
 class LaunchCounter:
@@ -182,9 +182,12 @@ def lib() -> ctypes.CDLL:
                                              i, p]
             handle.rva_fused_stem.argtypes = [i, p, p, p, p, p, p, i, i, i, i,
                                               i, i, p]
+            handle.rva_letterbox.argtypes = [i, p, p, p, p, i, i, i, i, i, i,
+                                             i, i, i, i, p]
             handle.rva_cuda_error_string.argtypes = [i]
             handle.rva_cuda_error_string.restype = ctypes.c_char_p
-            for fn in ("rva_row_gather", "rva_decode_v8", "rva_fused_stem"):
+            for fn in ("rva_row_gather", "rva_decode_v8", "rva_fused_stem",
+                       "rva_letterbox"):
                 getattr(handle, fn).restype = i
             _lib = handle
     return _lib

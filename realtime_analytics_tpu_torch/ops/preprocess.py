@@ -8,8 +8,9 @@ target HxW) pair and matches the reference bit-for-bit:
     pad_top = (th - new_h) // 2 ; pad_left = (tw - new_w) // 2
 
 ``preprocess_batch`` is plain tensor code in the JAX package too (XLA, not
-a Pallas kernel); its Pallas sibling ``pallas_letterbox`` (kernel B4) is
-not ported yet (ROADMAP.md). ``letterbox_numpy`` is the host/cv2 oracle.
+a Pallas kernel). With ``round_uint8=True`` and NHWC it is the plain
+version of kernel B4 (``ops/letterbox.py``, the counterpart of the Pallas
+``pallas_letterbox``). ``letterbox_numpy`` is the host/cv2 oracle.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Pipeline orchestration: stream workers, scheduler, health, lifecycle.
 
-The port's copy of the JAX package's ``pipeline.py``. Temporal engines are
-not ported yet (ROADMAP.md), so the temporal-engine branches are left out.
+The port's copy of the JAX package's ``pipeline.py``, temporal branches
+included: a temporal engine's clip buffer is reset on reconnect, and its
+per-stream metrics are published.
 
 Architecture (vs reference ``pipeline.py``): the reference runs one asyncio
 task per stream and calls ``detector.predict`` *synchronously inside the
@@ -39,6 +40,7 @@ import numpy as np
 from .config import PipelineConfig, StreamConfig
 from .engine.batcher import InferenceBatcher
 from .engine.detector import BaseDetector, create_detector
+from .engine.temporal import TorchTemporalEngine
 from .ingest.ffmpeg_simulator import FFmpegStreamSimulator
 from .ingest.video_stream import StreamSourceError, VideoStream
 from .sinks.kafka_sink import KafkaSink
@@ -280,6 +282,8 @@ class StreamWorker:
                 if self._stop.is_set():
                     return
                 # stream state must not straddle a reconnect
+                if isinstance(self.detector, TorchTemporalEngine):
+                    self.detector.reset_stream(cfg.name)
                 if self._motion is not None:
                     self._motion.reset()
                 await asyncio.sleep(cfg.reconnect_backoff)
@@ -430,6 +434,14 @@ class StreamWorker:
             detections=len(detections),
             active_tracks=len(tracks),
         )
+        if isinstance(self.detector, TorchTemporalEngine):
+            self.metrics.update_temporal_metrics(
+                cfg.name,
+                sequences=1 if detections else 0,
+                buffer_size=self.detector.buffered(cfg.name),
+                inference_seconds=self.detector.last_infer_ms / 1e3
+                if detections else None,
+            )
         await self.kafka.send_tracks(
             cfg.name, packet.frame_id, tracks, packet.frame,
             health=self.health.health_score, fps=self.health.effective_fps,

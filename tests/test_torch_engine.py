@@ -166,8 +166,8 @@ def test_device_rules():
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(model_type="resnet"), "ResNet"),
-    (dict(model_type="cnn_lstm"), "temporal"),
+    (dict(model_type="resnet", mesh_shape=[2, 1]), "ResNet"),
+    (dict(model_type="cnn_lstm", mesh_shape=[2, 1]), "temporal"),
     (dict(model_path="model.rvae"), "rvae"),
     (dict(precision="int8"), "int8"),
     (dict(mesh_shape=[2, 1]), "mesh_shape"),

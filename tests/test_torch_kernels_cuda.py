@@ -9,7 +9,11 @@ Whether a card is present is decided inside the ``card`` fixture, never at
 import time, so every pytest-xdist worker collects the same tests.
 Tolerances: B1 bit-exact; B2 boxes atol 1e-3 px, conf atol 1e-5, classes
 exact; B3 fp32 atol 1e-4, bf16 within 1% of the output range (P1 is rounded
-to bf16 in both versions; accumulation order may flip one rounding).
+to bf16 in both versions; accumulation order may flip one rounding); B4 pad
+exact, content within one uint8 level (plus one bf16 ulp in bf16) on under
+1% of the pixels. Both versions run the same tables in the same fp32
+order without FMA contraction, so they are expected to agree bit for bit;
+the bound is the one the port holds B4 to.
 """
 
 import numpy as np
@@ -19,6 +23,8 @@ import torch
 from realtime_analytics_tpu_torch.ops import _cuda
 from realtime_analytics_tpu_torch.ops.decode import decode_v8_level, decode_v8_level_plain
 from realtime_analytics_tpu_torch.ops.gather import row_gather, row_gather_plain
+from realtime_analytics_tpu_torch.ops.letterbox import letterbox, letterbox_plain, stretch_spec
+from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
 from realtime_analytics_tpu_torch.ops.stem import (
     fused_stem_p1p2,
     fused_stem_p1p2_plain,
@@ -109,3 +115,37 @@ def test_stem_matches_plain(card, dtype, n, h, w, c0, c1):
     tol = 1e-2 * want.abs().max().item() if dtype == torch.bfloat16 else 1e-4
     assert err <= tol, err
     assert np.isfinite(got.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("src_hw,dst_hw,stretch,dtype", [
+    ((1080, 1920), (640, 640), False, torch.bfloat16),  # H select
+    ((720, 1280), (640, 640), False, torch.bfloat16),   # H mean2
+    ((1520, 2688), (640, 640), False, torch.bfloat16),  # H fractional
+    ((1080, 1920), (224, 224), True, torch.float32),    # the ResNet stretch
+    ((75, 131), (128, 128), False, torch.float32),      # upscale, pad on both axes
+])
+def test_letterbox_matches_plain(card, src_hw, dst_hw, stretch, dtype):
+    g = torch.Generator(device=card).manual_seed(src_hw[0] + dst_hw[0])
+    frames = torch.randint(0, 256, (4, *src_hw, 3), generator=g, device=card,
+                           dtype=torch.uint8)
+    spec = stretch_spec(src_hw, dst_hw) if stretch else letterbox_spec(src_hw, dst_hw)
+    before = _cuda.LAUNCHES.snapshot()["letterbox"]
+    got = letterbox(frames, spec, dtype)
+    assert _cuda.LAUNCHES.snapshot()["letterbox"] == before + 1
+    want = letterbox_plain(frames, spec, dtype)
+    assert got.shape == want.shape and got.dtype == dtype and got.is_contiguous()
+    content = torch.zeros(dst_hw, dtype=torch.bool, device=card)
+    content[spec.pad_top:spec.pad_top + spec.new_h, spec.pad_left:spec.pad_left + spec.new_w] = True
+    assert torch.equal(got[:, ~content], want[:, ~content])
+    diff = (got.float() - want.float()).abs()[:, content]
+    tol = 1.0 / 255.0 + (2.0 ** -8 if dtype == torch.bfloat16 else 1e-6)
+    assert diff.max().item() <= tol
+    assert (diff.amax(-1) > 0).float().mean().item() < 0.01
+
+
+def test_letterbox_rejects_what_it_does_not_take(card):
+    spec = letterbox_spec((48, 64), (32, 32))
+    with pytest.raises(TypeError):
+        letterbox(torch.zeros(1, 48, 64, 3, device=card), spec)
+    with pytest.raises(ValueError):
+        letterbox(torch.zeros(1, 48, 128, 3, dtype=torch.uint8, device=card)[:, :, ::2], spec)

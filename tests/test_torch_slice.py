@@ -12,6 +12,15 @@
    weights-.onnx yet).
 2. A short ``AnalyticsPipeline.run_for`` with two synthetic streams: frames
    flow on both and the pipeline shuts down cleanly.
+3. The YOLO device-resize step (no host pick, no host resize) at a
+   fractional source geometry (300x400 -> 128: 96x128 content) against
+   ``JaxYoloEngine``: with ``pallas_preprocess`` auto both run their plain
+   letterbox; with ``on`` the JAX package runs its Pallas kernel in
+   interpret mode and the port B4's CPU form. Bounds as the engine test
+   (tests/test_torch_engine.py): num_valid and classes equal, boxes atol
+   1e-2 px, scores atol 1e-4.
+4. ``AnalyticsPipeline`` serving the ResNet classifier and a temporal
+   model: frames flow, and the temporal branches publish clip metrics.
 """
 
 import asyncio
@@ -22,6 +31,8 @@ import os
 import numpy as np
 import pytest
 
+from realtime_analytics_tpu.config import DetectorConfig as JaxConfig
+from realtime_analytics_tpu.engine.detector import JaxYoloEngine
 from realtime_analytics_tpu_torch.config import (
     DetectorConfig,
     KafkaSinkConfig,
@@ -158,3 +169,64 @@ def test_pipeline_runs_two_synthetic_streams_and_stops():
     assert all(w.health.total_frames > 0 for w in pipeline.workers)
     assert pipeline.batchers["__default__"].stats.frames > 0
     assert not pipeline._tasks  # stop() reaped every task
+
+
+@pytest.mark.parametrize("pallas_preprocess", ["auto", "on"])
+def test_device_resize_step_matches_jax(tmp_path, pallas_preprocess):
+    weights = tmp_path / "yolov8n_synthetic.npz"
+    np.savez(weights, **_script("gen_golden_fixture").synthetic_weights())
+    kw = dict(model_path=str(weights), device="cpu", confidence_threshold=0.25,
+              warmup=False, input_size=[128, 128], max_batch_size=4, batch_buckets=[4],
+              pre_nms_topk=256, precision="fp32", host_select="off", host_resize="off",
+              pallas_preprocess=pallas_preprocess)
+    scene = cv2.imread(os.path.join(REPO, "tests", "data", "golden_scene.png"))
+    frames = np.stack([scene[y:y + 300, x:x + 400]
+                       for y, x in ((300, 100), (500, 700), (600, 1200), (200, 1500))])
+    engine = TorchYoloEngine(DetectorConfig(**kw))
+    _, selected = engine.host_prepare(frames, frames.shape[1:3])
+    assert not selected  # the device-resize step
+    want = JaxYoloEngine(JaxConfig(**kw)).predict_arrays(frames)
+    got = engine.predict_arrays(frames)
+    np.testing.assert_array_equal(got.num_valid, want.num_valid)
+    assert want.num_valid.min() >= 10
+    for i, n in enumerate(want.num_valid):
+        np.testing.assert_array_equal(got.class_ids[i, :n], want.class_ids[i, :n])
+        np.testing.assert_allclose(got.boxes_xyxy[i, :n], want.boxes_xyxy[i, :n], atol=1e-2)
+        np.testing.assert_allclose(got.scores[i, :n], want.scores[i, :n], atol=1e-4)
+
+
+@pytest.mark.parametrize("model_type", ["resnet", "cnn_lstm"])
+def test_pipeline_serves_classifier_and_temporal_models(monkeypatch, model_type):
+    from realtime_analytics_tpu_torch.telemetry.metrics import MetricsPublisher
+
+    calls = []
+    monkeypatch.setattr(MetricsPublisher, "update_temporal_metrics",
+                        lambda self, stream, **kw: calls.append((stream, kw)))
+    cfg = PipelineConfig(
+        streams=[
+            StreamConfig(name=f"cam-{i}", url=f"synthetic://?width=160&height=120&seed={i}",
+                         warmup_seconds=0.0, target_fps=25, batch_size=2)
+            for i in range(2)
+        ],
+        detector=DetectorConfig(
+            model_path=f"absent-{model_type}18.pt", model_type=model_type, device="cpu",
+            confidence_threshold=0.01, warmup=True, input_size=[32, 32], max_batch_size=2,
+            batch_buckets=[2], precision="fp32", resnet_num_classes=10,
+            num_action_classes=10, sequence_length=4,
+        ),
+        tracker=TrackerConfig(min_hits=1),
+        kafka=KafkaSinkConfig(enabled=True, transport="memory"),
+        prometheus=PrometheusConfig(enabled=False),
+        snapshots=SnapshotConfig(enabled=False),
+        stats_interval_seconds=30,
+    )
+    pipeline = AnalyticsPipeline(cfg)
+    asyncio.run(pipeline.run_for(2.0))
+    assert all(w.health.total_frames > 0 for w in pipeline.workers)
+    assert {p["stream"] for p in pipeline.kafka.memory_buffer} == {"cam-0", "cam-1"}
+    if model_type == "resnet":
+        assert not calls
+    else:  # one call per finished frame; clips every 2 frames once 4 are in
+        assert {c[0] for c in calls} == {"cam-0", "cam-1"}
+        assert any(kw["sequences"] == 1 for _, kw in calls)
+        assert all(0 < kw["buffer_size"] <= 4 for _, kw in calls)
