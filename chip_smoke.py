@@ -14,8 +14,9 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
    its paths give it (B1 row gather, B2 head decode, B3 fused stem: N=32,
    640 input, bf16, B3 also fp32; B4 letterbox: 32 x 1080p -> 640 (H
    select), 32 x 720p -> 640 (H mean2), 32 x 1520x2688 -> 640 (H
-   fractional), all bf16, and 32 x 1080p -> 224x224 fp32, the ResNet
-   stretch), timed with CUDA events next to its plain version, the one
+   fractional), all bf16, 32 x 1080p -> 224x224 fp32, the ResNet
+   stretch, and 64 x 1080p -> 224x224 and -> 112x112 fp32, the temporal
+   clip stretches), timed with CUDA events next to its plain version, the one
    PyTorch call that computes the same function where there is one, and
    its bound (the larger of bytes over 3.35 TB/s and operations over the
    dtype's dense peak, H100 SXM data sheet);
@@ -45,8 +46,10 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
 
 Every path of phases 4-8 runs with the launch counters set to 0 just
 before and read just after; each fails unless the kernels it runs were
-launched. A kernel's ``launches`` in the kernels line is its sum over
-those paths. Any failure exits non-zero without the last line; so does a
+launched. A kernel's ``launches`` in the kernels line is its count on one
+step of the path its row times (the main path for B1-B3, the
+device-resize step for B4), and ``launches_by_path`` holds each path's own
+count. Any failure exits non-zero without the last line; so does a
 machine with no visible CUDA card, or a directory without the package.
 """
 
@@ -95,6 +98,17 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_ms(fn, n: int):
+    """Host-clock ms of ``fn`` (which ends in a device->host copy), median
+    and min of ``n`` calls."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times)
 
 
 def bound(nbytes: float, flops: float, dtype: torch.dtype):
@@ -274,13 +288,16 @@ def check_letterbox(gen):
     )
     from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
 
-    cases = (("select", (1080, 1920), (640, 640), False, torch.bfloat16),
-             ("mean2", (720, 1280), (640, 640), False, torch.bfloat16),
-             ("matmul", (1520, 2688), (640, 640), False, torch.bfloat16),
-             ("stretch", (1080, 1920), (224, 224), True, torch.float32))
+    # the temporal clip steps stretch 4 clips x 16 frames = 64 frames
+    cases = (("select", N, (1080, 1920), (640, 640), False, torch.bfloat16),
+             ("mean2", N, (720, 1280), (640, 640), False, torch.bfloat16),
+             ("matmul", N, (1520, 2688), (640, 640), False, torch.bfloat16),
+             ("stretch", N, (1080, 1920), (224, 224), True, torch.float32),
+             ("clip_224", 64, (1080, 1920), (224, 224), True, torch.float32),
+             ("clip_112", 64, (1080, 1920), (112, 112), True, torch.float32))
     rows = {}
-    for name, src, dst, stretch, dtype in cases:
-        frames = torch.randint(0, 256, (N, *src, 3), generator=gen, device="cuda",
+    for name, n, src, dst, stretch, dtype in cases:
+        frames = torch.randint(0, 256, (n, *src, 3), generator=gen, device="cuda",
                                dtype=torch.uint8)
         spec = stretch_spec(src, dst) if stretch else letterbox_spec(src, dst)
         got, want = letterbox(frames, spec, dtype), letterbox_plain(frames, spec, dtype)
@@ -299,7 +316,7 @@ def check_letterbox(gen):
         err = diff.max().item()
         share = (diff.amax(-1) > 0).float().mean().item()
         tol = 1.0 / 255.0 + (2.0 ** -8 if dtype == torch.bfloat16 else 1e-6)
-        log(f"B4 {name} {src}->{dst} {str(dtype)[6:]}: pad exact {pad_exact}, max "
+        log(f"B4 {name} {n}x{src}->{dst} {str(dtype)[6:]}: pad exact {pad_exact}, max "
             f"|content| err {err:.4g} (tol {tol:.4g}), pixels differing {share:.5f} (< 0.01)")
         assert pad_exact and err <= tol and share < 0.01, f"B4 {name} disagrees"
         ms = cuda_ms(lambda: letterbox(frames, spec, dtype), iters=20)
@@ -309,8 +326,8 @@ def check_letterbox(gen):
                                                mode="bilinear", align_corners=False),
                          iters=10, warmup=2)
         del nchw, got, want
-        b_ms, b_by, nbytes, flops, tapped = letterbox_bound(spec, N, dtype)
-        rows[name] = dict(src=list(src), dst=list(dst), dtype=str(dtype)[6:],
+        b_ms, b_by, nbytes, flops, tapped = letterbox_bound(spec, n, dtype)
+        rows[name] = dict(n=n, src=list(src), dst=list(dst), dtype=str(dtype)[6:],
                           max_abs_err=err, pixels_differing=share, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                           bound_by=b_by, bytes=nbytes, flops=flops, rows_tapped=tapped)
@@ -437,14 +454,9 @@ def run_engine(params, frames):
     del ref, stem_only, on32, off32
 
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(25):
-        t0 = time.perf_counter()
-        eng.predict_arrays(frames)  # ends in device->host copies: synchronised
-        times.append((time.perf_counter() - t0) * 1e3)
-    step_ms = statistics.median(times)
+    step_ms, step_min = timed_ms(lambda: eng.predict_arrays(frames), 25)
     mem = torch.cuda.max_memory_allocated() / 2**20
-    summary = dict(step_ms_median=step_ms, step_ms_min=min(times),
+    summary = dict(step_ms_median=step_ms, step_ms_min=step_min,
                    frames_per_s=N / step_ms * 1e3, max_memory_allocated_mib=mem,
                    bf16_conf_max_delta=conf_d, bf16_box_median_delta_px=box_med,
                    bf16_class_agreement=cls_agree, bf16_all_off_frames_equal=all_off,
@@ -455,17 +467,6 @@ def run_engine(params, frames):
 # ---------------------------------------------------------------------------
 # phases 5-7: the paths that run B4
 # ---------------------------------------------------------------------------
-
-
-def timed_ms(fn, n: int):
-    """Host-clock ms of ``fn`` (which ends in a device->host copy), median
-    and min of ``n`` calls."""
-    times = []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times), min(times)
 
 
 def run_device_resize(params, frames):
@@ -569,17 +570,15 @@ def run_resnet(params, frames):
     from realtime_analytics_tpu_torch.engine.detector import TorchResNetEngine
     from realtime_analytics_tpu_torch.ops import _cuda
 
-    out, total = {}, {}
+    out, paths = {}, {}
     for prec in ("bf16", "fp32"):
         eng = TorchResNetEngine(resnet_config(precision=prec), params=params)
         eng.classify(frames)
         torch.cuda.synchronize()
         _cuda.LAUNCHES.reset()
         got = eng.classify(frames)
-        launches = _cuda.LAUNCHES.snapshot()
+        paths[f"resnet_{prec}"] = launches = _cuda.LAUNCHES.snapshot()
         require_launched(f"ResNet-50 {prec} path", launches, ("letterbox",))
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
         assert got[0].shape == (N, 5) and np.isfinite(got[0]).all()
         off = TorchResNetEngine(resnet_config(precision=prec, pallas_preprocess="off"),
                                 params=params)
@@ -604,14 +603,14 @@ def run_resnet(params, frames):
     step_ms, step_min = timed_ms(lambda: host.classify(frames), 3)
     out["bf16_host_resize_on"] = dict(step_ms_median=step_ms, step_ms_min=step_min,
                                       frames_per_s=N / step_ms * 1e3)
-    log(f"ResNet-50 launches (bf16 + fp32 runs) {json.dumps(total)}")
-    return total, out
+    return paths, out
 
 
 def run_temporal(frames):
     """Each temporal family on 4 clips of 16 full 1080p frames: B4 stretch
     of the 64 frames, normalize, the clip forward; top-5 against
-    ``pallas_preprocess: off``."""
+    ``pallas_preprocess: off`` (reported: that is the unrounded resize, a
+    different function; B4 itself is held at these shapes in phase 3)."""
     from realtime_analytics_tpu_torch.config import DetectorConfig, StreamConfig
     from realtime_analytics_tpu_torch.engine.temporal import TorchTemporalEngine
     from realtime_analytics_tpu_torch.models.temporal import build_temporal
@@ -623,7 +622,7 @@ def run_temporal(frames):
     seqs = [[FramePacket(stream=StreamConfig(name=f"cam-{c}", url="synthetic://"),
                          frame=frames[(c * t_len + t) % len(frames)], frame_id=t,
                          timestamp=t / 25.0) for t in range(t_len)] for c in range(clips)]
-    out, total = {}, {}
+    out, paths = {}, {}
     for family, hw in (("cnn_lstm", 224), ("conv_gru", 224), ("3d_cnn", 112),
                        ("slow_fast", 112)):
         params = temporal_synthetic_params(build_temporal(family, 400), seed=0)
@@ -641,10 +640,8 @@ def run_temporal(frames):
         torch.cuda.synchronize()
         _cuda.LAUNCHES.reset()
         got = eng.predict_clips(seqs)
-        launches = _cuda.LAUNCHES.snapshot()
+        paths[family] = launches = _cuda.LAUNCHES.snapshot()
         require_launched(f"{family} clip path", launches, ("letterbox",))
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
         want = TorchTemporalEngine(cfg(pallas_preprocess="off"), params=params).predict_clips(seqs)
 
         def arrays(dets):
@@ -666,7 +663,7 @@ def run_temporal(frames):
         log(f"{family} ({hw}x{hw}, bf16): launches {launches['letterbox']}, top-5 equal on "
             f"{top5}/{clips} clips against B4 off (reported), clip step {step_ms:.1f} ms")
         del eng
-    return total, out
+    return paths, out
 
 
 # ---------------------------------------------------------------------------
@@ -787,9 +784,11 @@ def main() -> int:
     paths["device_resize"], resize = run_device_resize(params, frames720)
     log("device_resize " + json.dumps(dict(resize, card=card)))
     resnet_params = resnet_synthetic_params(build_resnet("resnet50", 1000), seed=0)
-    paths["resnet"], resnet = run_resnet(resnet_params, frames)
+    resnet_paths, resnet = run_resnet(resnet_params, frames)
+    paths.update(resnet_paths)
     log("resnet50 " + json.dumps(dict(resnet, card=card)))
-    paths["temporal"], temporal = run_temporal(frames)
+    temporal_paths, temporal = run_temporal(frames)
+    paths.update(temporal_paths)
     log("temporal " + json.dumps(dict(temporal, card=card)))
     torch.cuda.empty_cache()
 
@@ -804,10 +803,14 @@ def main() -> int:
     log("resnet50_pipeline " + json.dumps(dict(rpipe, card=card)))
 
     log("launches by path " + json.dumps(paths))
-    for row in kernels:
-        row["launches"] = sum(p[row["name"]] for p in paths.values())
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # launches: one step of the path whose shapes the row times (the main
+    # path for B1-B3, the device-resize step for B4); launches_by_path: each
+    # path's own count, read just after its own reset
+    for row, path in zip(kernels, ("main", "main", "main", "device_resize")):
+        row["launches"] = paths[path][row["name"]]
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -252,8 +252,9 @@ class DetectorConfig:
     # the same (the plain version is the CPU form of the kernel); "off" =
     # the plain layer-by-layer PyTorch path everywhere.
     # Bilinear letterbox / stretch kernel (B4, csrc/letterbox.cu). YOLO
-    # device-resize step: "auto" launches it when the letterbox resizes,
-    # "on" always. ResNet and temporal device steps: any value but "off"
+    # device-resize step: "auto" launches it on the card when the letterbox
+    # resizes (the CPU takes the plain preprocess, as the JAX package's auto
+    # does off the TPU); "on" always, in its plain form on the CPU. ResNet and temporal device steps: any value but "off"
     # launches it on the card; "off" (and the CPU) takes the JAX package's
     # unrounded bilinear resize.
     pallas_preprocess: str = "auto"  # auto | on | off

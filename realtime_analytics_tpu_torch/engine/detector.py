@@ -284,12 +284,13 @@ class TorchYoloEngine(BaseDetector):
     def _device_letterbox(self, frames_u8: torch.Tensor, spec) -> torch.Tensor:
         """Full frames -> the letterboxed RGB [0, 1] model input, NHWC, as
         JAX ``_build_step``: kernel B4 when ``pallas_preprocess`` is on, or
-        auto and the letterbox resizes (an identity geometry skips it);
-        else the plain ``preprocess_batch``. B4's wrapper takes its plain
-        version for a CPU tensor."""
+        auto on the card and the letterbox resizes (an identity geometry
+        skips it); else the plain ``preprocess_batch``, which is what auto
+        takes on the CPU, as the JAX package's auto does off the TPU. B4's
+        wrapper takes its plain version for a CPU tensor under ``on``."""
         mode = self.config.pallas_preprocess
         needs_resize = (spec.new_h, spec.new_w) != (spec.src_h, spec.src_w)
-        if mode == "on" or (mode == "auto" and needs_resize):
+        if mode == "on" or (mode == "auto" and needs_resize and frames_u8.is_cuda):
             return letterbox(frames_u8, spec, self.compute_dtype)
         return preprocess_batch(frames_u8, spec=spec, out_dtype=self.compute_dtype,
                                 layout="NHWC")

@@ -30,6 +30,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from realtime_analytics_tpu.config import DetectorConfig as JaxConfig
 from realtime_analytics_tpu.engine.detector import JaxYoloEngine
@@ -44,6 +45,8 @@ from realtime_analytics_tpu_torch.config import (
 )
 from realtime_analytics_tpu_torch.engine.batcher import InferenceBatcher
 from realtime_analytics_tpu_torch.engine.detector import TorchYoloEngine
+from realtime_analytics_tpu_torch.ops.letterbox import letterbox_plain
+from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec, preprocess_batch
 from realtime_analytics_tpu_torch.pipeline import AnalyticsPipeline
 from realtime_analytics_tpu_torch.tracker import IouTracker
 from realtime_analytics_tpu_torch.types import FramePacket
@@ -185,6 +188,13 @@ def test_device_resize_step_matches_jax(tmp_path, pallas_preprocess):
     engine = TorchYoloEngine(DetectorConfig(**kw))
     _, selected = engine.host_prepare(frames, frames.shape[1:3])
     assert not selected  # the device-resize step
+    # on the CPU, auto takes the plain preprocess as the JAX package's auto
+    # does off the TPU; on takes B4's CPU form
+    spec = letterbox_spec(frames.shape[1:3], engine.input_hw)
+    x = torch.from_numpy(frames)
+    plain = (letterbox_plain(x, spec, torch.float32) if pallas_preprocess == "on" else
+             preprocess_batch(x, spec=spec, out_dtype=torch.float32, layout="NHWC"))
+    assert torch.equal(engine._device_letterbox(x, spec), plain)
     want = JaxYoloEngine(JaxConfig(**kw)).predict_arrays(frames)
     got = engine.predict_arrays(frames)
     np.testing.assert_array_equal(got.num_valid, want.num_valid)
