@@ -9,10 +9,15 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. build every kernel from ``realtime_analytics_tpu_torch/csrc`` with nvcc
-   for sm_90a (build seconds, ``-Xptxas -v`` lines);
+   for sm_90a (build seconds, ``-Xptxas -v`` lines, and the stem kernels'
+   registers, spills and shared memory on a line of their own);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   its paths give it (B1 row gather, B2 head decode, B3 fused stem: N=32,
-   640 input, bf16, B3 also fp32; B4 letterbox: 32 x 1080p -> 640 (H
+   its paths give it (B1 row gather, with its device time from a replayed
+   CUDA graph and the host's cost per call, beside ``torch.gather``'s; B2
+   head decode; B3 fused stem: N=32, 640 input, bf16 on the tensor cores at
+   the v8n and v8s widths and fp32 on the general kernel, plus two small
+   general-kernel cases, each printed with the instantiation it took; B4
+   letterbox: 32 x 1080p -> 640 (H
    select), 32 x 720p -> 640 (H mean2), 32 x 1520x2688 -> 640 (H
    fractional), all bf16, 32 x 1080p -> 224x224 fp32, the ResNet
    stretch, and 64 x 1080p -> 224x224 and -> 112x112 fp32, the temporal
@@ -100,6 +105,52 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_us(fn, launches: int = 100, replays: int = 20) -> float:
+    """Device time of one call of ``fn`` in microseconds: a CUDA graph of
+    ``launches`` calls, replayed back to back, so that no host cost of
+    making the calls is in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * launches) * 1e3
+
+
+def host_us(fns: dict, calls: int = 1000, rounds: int = 5) -> dict:
+    """The host's cost of one call of each function in microseconds:
+    unsynchronised calls on the host clock, the queue drained first. The
+    functions take turns in every round and each keeps its least round: a
+    shared host only ever adds time."""
+    best = dict.fromkeys(fns, float("inf"))
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            best[name] = min(best[name], (time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return best
+
+
 def timed_ms(fn, n: int):
     """Host-clock ms of ``fn`` (which ends in a device->host copy), median
     and min of ``n`` calls."""
@@ -141,13 +192,21 @@ def check_gather(gen):
         assert exact, f"B1 not bit-exact at {(N, m, p, k)}"
         ms = cuda_ms(lambda: row_gather(payload, idx), iters=200)
         plain_ms = cuda_ms(lambda: row_gather_plain(payload, idx), iters=200)
-        lib_ms = cuda_ms(lambda: torch.gather(payload, 1, idx[..., None].expand(-1, -1, p)),
-                         iters=200)
+
+        def library(payload=payload, idx=idx, p=p):
+            return torch.gather(payload, 1, idx[..., None].expand(-1, -1, p))
+
+        lib_ms = cuda_ms(library, iters=200)
         nbytes = N * k * 8 + 2 * N * k * p * 4  # idx + gathered rows + output
         b_ms, b_by = bound(nbytes, 0.0, torch.float32)
+        # the two parts of ms apart: the kernel on the card, the call on the host
+        host = host_us(dict(kernel=lambda: row_gather(payload, idx), library=library))
         rows.append(dict(shape=[N, m, p, k], max_abs_err=0.0, bit_exact=exact,
                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
+                         bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                         device_us=graph_us(lambda: row_gather(payload, idx)),
+                         host_us=host["kernel"], library_device_us=graph_us(library),
+                         library_host_us=host["library"]))
     log("B1 " + json.dumps(rows))
     first = rows[0]
     return dict(name="row_gather", route="cuda",
@@ -204,6 +263,23 @@ def check_decode(gen):
     return row
 
 
+def stem_ptxas(lines):
+    """Registers, spills, barriers and static shared memory of the stem
+    kernels, from nvcc's ``-Xptxas -v`` lines: {kernel: "... spill ...; Used
+    ..."}. Their shared memory is dynamic: the B3 line gives it per case."""
+    out, name = {}, None
+    for line in lines:
+        if "Compiling entry function" in line:
+            name = next((k for k in ("stem_mma_kernel", "stem_general_kernel")
+                         if k in line), None)
+            if name == "stem_general_kernel":  # the mangled template argument
+                name += "<bf16>" if "nv_bfloat16" in line else "<fp32>"
+        elif name and ("Used" in line or "spill" in line):
+            fact = line.split("info    :")[-1].strip()
+            out[name] = f"{out[name]}; {fact}" if name in out else fact
+    return out
+
+
 def check_stem(gen):
     import torch.nn.functional as F
 
@@ -211,43 +287,64 @@ def check_stem(gen):
         fused_stem_p1p2,
         fused_stem_p1p2_plain,
         prepare_stem,
+        stem_instantiation,
+        stem_smem_bytes,
     )
 
-    c0, c1 = 16, 32  # YOLOv8n
-    w0 = torch.randn(c0, 3, 3, 3, generator=gen, device="cuda") * (2 / 27) ** 0.5 / 255
-    b0 = torch.randn(c0, generator=gen, device="cuda") * 0.05
-    w1 = torch.randn(c1, c0, 3, 3, generator=gen, device="cuda") * (2 / 144) ** 0.5
-    b1 = torch.randn(c1, generator=gen, device="cuda") * 0.05
-    x8 = torch.randint(0, 256, (N, HW, HW, 3), generator=gen, device="cuda",
-                       dtype=torch.uint8)  # raw pixels (stem-folded weights)
-    out = {}
-    for dtype, tol_name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+    def case(name, dtype, shape, c0, c1, want_kind, timed):
+        n, h, w = shape
+        w0 = torch.randn(c0, 3, 3, 3, generator=gen, device="cuda") * (2 / 27) ** 0.5 / 255
+        b0 = torch.randn(c0, generator=gen, device="cuda") * 0.05
+        w1 = torch.randn(c1, c0, 3, 3, generator=gen, device="cuda") * (2 / (9 * c0)) ** 0.5
+        b1 = torch.randn(c1, generator=gen, device="cuda") * 0.05
         sw = prepare_stem(w0, b0, w1, b1, dtype)
-        x = x8.to(dtype)
+        x = torch.randint(0, 256, (n, h, w, 3), generator=gen, device="cuda",
+                          dtype=torch.uint8).to(dtype)  # raw pixels (stem-folded weights)
+        kind = stem_instantiation(dtype, c0, c1, w)
+        assert kind == want_kind, f"B3 {name} took {kind}, not {want_kind}"
         got, want = fused_stem_p1p2(x, sw), fused_stem_p1p2_plain(x, sw)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == dtype and got.is_contiguous()
         err = (got.float() - want.float()).abs().max().item()
         scale = want.float().abs().max().item()
         # bf16: P1 is rounded to bf16 in both, so an fp32 accumulation-order
         # difference can flip one P1 rounding: allow 1% of the output range;
         # fp32: accumulation order only
         tol = 1e-2 * scale if dtype == torch.bfloat16 else 1e-4
-        log(f"B3 {tol_name}: max abs err {err:.3g} (tol {tol:.3g}, max |out| {scale:.3g})")
-        assert err <= tol, f"B3 {tol_name} disagrees"
+        log(f"B3 {name} ({kind} kernel) {str(dtype)[6:]} x{list(x.shape)} c0={c0} c1={c1}: "
+            f"max abs err {err:.3g} (tol {tol:.3g}, max |out| {scale:.3g})")
+        assert err <= tol, f"B3 {name} disagrees"
+        del got, want
+        row = dict(kernel=kind, shape=list(x.shape), c0=c0, c1=c1, max_abs_err=err,
+                   smem_bytes=stem_smem_bytes(c0, c1, kind))  # dynamic: not in ptxas -v
+        if not timed:
+            return row
         ms = cuda_ms(lambda: fused_stem_p1p2(x, sw), iters=20)
-        plain_ms = cuda_ms(lambda: fused_stem_p1p2_plain(x, sw), iters=20)
+        plain_ms = cuda_ms(lambda: fused_stem_p1p2_plain(x, sw), iters=10)
         xc = x.permute(0, 3, 1, 2)  # channels_last NCHW view
         w0c, w1c = w0.to(dtype), w1.to(dtype)
         b0c, b1c = b0.to(dtype), b1.to(dtype)
         chain_ms = cuda_ms(lambda: F.silu(F.conv2d(
             F.silu(F.conv2d(xc, w0c, b0c, stride=2, padding=1)), w1c, b1c,
-            stride=2, padding=1)), iters=20)
+            stride=2, padding=1)), iters=10)
         esz = 2 if dtype == torch.bfloat16 else 4
-        nbytes = N * HW * HW * 3 * esz + N * (HW // 4) ** 2 * c1 * esz
-        flops = 2.0 * (N * (HW // 2) ** 2 * c0 * 27 + N * (HW // 4) ** 2 * c1 * 9 * c0)
+        nbytes = n * h * w * 3 * esz + n * (h // 4) * (w // 4) * c1 * esz
+        flops = 2.0 * n * ((h // 2) * (w // 2) * c0 * 27 + (h // 4) * (w // 4) * c1 * 9 * c0)
         b_ms, b_by = bound(nbytes, flops, dtype)
-        out[tol_name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             cudnn_chain_ms=chain_ms, bound_ms=b_ms, bound_by=b_by,
-                             bytes=nbytes, flops=flops)
+        row.update(ms=ms, plain_ms=plain_ms, cudnn_chain_ms=chain_ms, bound_ms=b_ms,
+                   bound_by=b_by, bytes=nbytes, flops=flops)
+        return row
+
+    b16, f32 = torch.bfloat16, torch.float32
+    out = {
+        "bf16": case("v8n", b16, (N, HW, HW), 16, 32, "mma", True),  # the main path
+        "fp32": case("v8n", f32, (N, HW, HW), 16, 32, "general", True),
+        "bf16_v8s": case("v8s", b16, (N, HW, HW), 32, 64, "mma", True),
+        "fp32_ragged": case("ragged", f32, (2, 68, 36), 32, 64, "general", False),
+        "bf16_8_24": case("odd widths", b16, (2, 64, 64), 8, 24, "general", False),
+        "bf16_ragged": case("ragged", b16, (3, 72, 40), 16, 32, "mma", False),
+    }
+    torch.cuda.empty_cache()
     log("B3 " + json.dumps(out))
     bf = out["bf16"]
     return dict(name="fused_stem", route="cuda",
@@ -757,6 +854,7 @@ def main() -> int:
         f"(phase wall {time.perf_counter() - t0:.1f}s)")
     for line in info.ptxas:
         log(f"  {line.strip()}")
+    log("B3 ptxas " + json.dumps(stem_ptxas(info.ptxas)))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():

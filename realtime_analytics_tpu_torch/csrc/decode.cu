@@ -27,6 +27,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "_common.cu"
+
 namespace {
 
 constexpr int kRegMax = 16;
@@ -132,7 +134,7 @@ extern "C" int rva_decode_v8(int device, const void* box, const void* cls,
                              void* boxes, void* conf, void* cid, int n, int h,
                              int w, int nc, float stride, int is_bf16,
                              void* stream) {
-  cudaError_t dev_err = cudaSetDevice(device);
+  cudaError_t dev_err = rva_use_device(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {

@@ -35,6 +35,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "_common.cu"
+
 namespace {
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
@@ -124,7 +126,7 @@ extern "C" int rva_letterbox(int device, const void* src, void* out,
                              int src_h, int src_w, int dst_h, int dst_w,
                              int new_h, int new_w, int pad_top, int pad_left,
                              int out_bf16, void* stream) {
-  cudaError_t dev_err = cudaSetDevice(device);
+  cudaError_t dev_err = rva_use_device(device);
   if (dev_err != cudaSuccess) return (int)dev_err;
   cudaStream_t s = (cudaStream_t)stream;
   if (out_bf16) {

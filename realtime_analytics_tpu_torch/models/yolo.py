@@ -231,10 +231,10 @@ class YoloModel(nn.Module):
             head.cv2[lvl][2].bias.fill_(1.0)
             head.cv3[lvl][2].bias.fill_(math.log(0.01 / 0.99))
 
-    def stem_ok(self, h: int, w: int) -> bool:
+    def stem_ok(self, h: int, w: int, dtype: torch.dtype = torch.float32) -> bool:
         """Nodes 0 and 1 are k3-s2 convs with single consumers (every
         published v8 layout) and the input geometry passes the kernel's
-        gate (ops/stem.stem_geometry_ok)."""
+        gate for ``dtype`` (ops/stem.stem_geometry_ok)."""
         if len(self.nodes) < 3:
             return False
         n0, n1 = self.nodes[:2]
@@ -247,7 +247,7 @@ class YoloModel(nn.Module):
                 consumers.setdefault(s if s >= 0 else j - 1, []).append(j)
         if any(consumers.get(i) != [i + 1] for i in range(2)):
             return False
-        return stem_geometry_ok(h, w, self.channels[0], self.channels[1])
+        return stem_geometry_ok(h, w, self.channels[0], self.channels[1], dtype)
 
     def stem_weights(self, dtype: torch.dtype,
                      w0: Optional[torch.Tensor] = None) -> StemWeights:
@@ -271,7 +271,7 @@ class YoloModel(nn.Module):
         xc = x.permute(0, 3, 1, 2)  # NCHW view in channels_last memory
         prev = xc
         start = 0
-        if self.pallas_stem != "off" and self.stem_ok(x.shape[1], x.shape[2]):
+        if self.pallas_stem != "off" and self.stem_ok(x.shape[1], x.shape[2], x.dtype):
             sw = stem_weights or self.stem_weights(x.dtype, w0)
             outs[1] = fused_stem_p1p2(x.contiguous(), sw).permute(0, 3, 1, 2)
             prev = outs[1]

@@ -9,8 +9,14 @@ unchanged tree reuses the build. Nothing here runs at import time: the
 first launch builds.
 
 Every C entry launches on PyTorch's current stream, allocates nothing and
-returns ``cudaGetLastError()``; ``check`` raises on a non-zero code. There
-is no fallback: a CUDA tensor either launches its kernel or raises.
+returns ``cudaGetLastError()``; a wrapper raises (``fail``) on a non-zero
+code. There is no fallback: a CUDA tensor either launches its kernel or
+raises.
+
+The launch path is kept short, because the small kernels cost the host
+more than the card: a wrapper binds its C entry once (``entry``) and calls
+the bound function, takes the raw stream as an int (``stream_of``), and
+counts its launch without a lock (``LaunchCounter``).
 """
 
 from __future__ import annotations
@@ -51,23 +57,37 @@ class LaunchCounter:
 
     A wrapper adds one where it launches its kernel and nowhere else, so a
     run can show that its path really went through the kernels. The batcher
-    calls the engine from several threads, hence the lock."""
+    calls the engine from several threads, so each thread counts in a
+    table of its own (only its owner writes it: ``add`` takes no lock), and
+    ``snapshot`` sums the tables. ``reset`` zeroes nothing, which would race
+    with an ``add`` in flight: it records the sums as the new baseline."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self.counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+        self._local = threading.local()
+        self._lock = threading.Lock()  # the list of tables and the baseline
+        self._tables: List[Dict[str, int]] = []
+        self._base: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
     def add(self, name: str) -> None:
-        with self._lock:
-            self.counts[name] += 1
+        try:
+            self._local.counts[name] += 1
+        except AttributeError:  # this thread's first launch
+            counts = self._local.counts = dict.fromkeys(KERNELS, 0)
+            with self._lock:
+                self._tables.append(counts)
+            counts[name] += 1
+
+    def _sums(self) -> Dict[str, int]:
+        return {k: sum(t[k] for t in self._tables) for k in KERNELS}
 
     def reset(self) -> None:
         with self._lock:
-            self.counts = dict.fromkeys(KERNELS, 0)
+            self._base = self._sums()
 
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
-            return dict(self.counts)
+            sums = self._sums()
+            return {k: sums[k] - self._base[k] for k in KERNELS}
 
 
 LAUNCHES = LaunchCounter()
@@ -86,7 +106,9 @@ _build: Optional[BuildInfo] = None
 
 
 def _sources() -> List[Path]:
-    return sorted(CSRC.glob("*.cu"))
+    """The sources nvcc compiles: a name that starts with ``_`` is a file
+    the others include."""
+    return sorted(p for p in CSRC.glob("*.cu") if not p.name.startswith("_"))
 
 
 def _nvcc() -> str:
@@ -105,7 +127,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -141,7 +163,9 @@ def build() -> BuildInfo:
         failed = []
         for src, proc in procs:
             out, _ = proc.communicate()
-            ptxas += [ln for ln in out.splitlines() if "ptxas" in ln]
+            # -Xptxas -v: the "ptxas info" lines and, indented under each
+            # function, its stack frame and spill bytes
+            ptxas += [ln for ln in out.splitlines() if "ptxas" in ln or "spill" in ln]
             if proc.returncode != 0:
                 failed.append(f"--- {src.name} (rc={proc.returncode})\n{out}")
         if failed:
@@ -180,8 +204,8 @@ def lib() -> ctypes.CDLL:
             handle.rva_row_gather.argtypes = [i, p, p, p, i, i64, i, i, p]
             handle.rva_decode_v8.argtypes = [i, p, p, p, p, p, i, i, i, i, f,
                                              i, p]
-            handle.rva_fused_stem.argtypes = [i, p, p, p, p, p, p, i, i, i, i,
-                                              i, i, p]
+            handle.rva_fused_stem.argtypes = [i, p, p, p, p, p, p, p, p, i, i,
+                                              i, i, i, i, i, p]
             handle.rva_letterbox.argtypes = [i, p, p, p, p, i, i, i, i, i, i,
                                              i, i, i, i, p]
             handle.rva_cuda_error_string.argtypes = [i]
@@ -193,15 +217,29 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def stream_of(t: torch.Tensor) -> int:
-    """PyTorch's current stream on ``t``'s device, as a pointer value."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+def entry(name: str):
+    """The bound C function ``name`` of the library, argument types set. A
+    wrapper keeps what this returns, so that a launch pays neither the
+    library lookup nor the attribute lookup."""
+    return getattr(lib(), name)
 
 
-def check(rc: int, name: str) -> None:
-    if rc != 0:
-        msg = lib().rva_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA kernel launch failed ({rc}: {msg})")
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_of(index: int) -> int:
+    """PyTorch's current stream on CUDA device ``index``, as a pointer
+    value: one C call where this PyTorch has it, else through the
+    ``Stream`` object."""
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def fail(rc: int, name: str) -> None:
+    """Raise for the non-zero code ``rc`` that a launch entry returned."""
+    msg = lib().rva_cuda_error_string(rc).decode()
+    raise RuntimeError(f"{name}: CUDA kernel launch failed ({rc}: {msg})")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:

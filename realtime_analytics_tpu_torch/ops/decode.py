@@ -24,6 +24,8 @@ from . import _cuda
 
 REG_MAX = 16
 
+_launch = None  # the bound C entry, set at the first launch
+
 
 def decode_v8_level_plain(
     box_f: torch.Tensor, cls_f: torch.Tensor, *, stride: float
@@ -56,6 +58,7 @@ def decode_v8_level(
     box_f: torch.Tensor, cls_f: torch.Tensor, *, stride: float
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode one v8 head level; same contract as the plain version."""
+    global _launch
     if box_f.device.type == "cpu" and cls_f.device.type == "cpu":
         return decode_v8_level_plain(box_f, cls_f, stride=stride)
     dev = _cuda.require_cuda("decode_v8_level", box_f, cls_f)
@@ -83,11 +86,14 @@ def decode_v8_level(
     boxes = torch.empty((n, h * w, 4), dtype=torch.float32, device=dev)
     conf = torch.empty((n, h * w), dtype=torch.float32, device=dev)
     cls = torch.empty((n, h * w), dtype=torch.int32, device=dev)
-    rc = _cuda.lib().rva_decode_v8(
-        dev.index or 0, box_f.data_ptr(), cls_f.data_ptr(), boxes.data_ptr(),
+    if _launch is None:
+        _launch = _cuda.entry("rva_decode_v8")
+    rc = _launch(
+        dev.index, box_f.data_ptr(), cls_f.data_ptr(), boxes.data_ptr(),
         conf.data_ptr(), cls.data_ptr(), n, h, w, nc, float(stride),
-        int(box_f.dtype == torch.bfloat16), _cuda.stream_of(box_f),
+        int(box_f.dtype == torch.bfloat16), _cuda.stream_of(dev.index),
     )
-    _cuda.check(rc, "decode_v8_level")
+    if rc:
+        _cuda.fail(rc, "decode_v8_level")
     _cuda.LAUNCHES.add("decode_v8")
     return boxes, conf, cls

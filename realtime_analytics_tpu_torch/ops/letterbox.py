@@ -30,6 +30,7 @@ from . import _cuda
 from .preprocess import PAD_VALUE, LetterboxSpec
 
 _TABLES: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+_launch = None  # the bound C entry, set at the first launch
 
 
 def bilinear_taps(src: int, dst: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -94,6 +95,7 @@ def letterbox(frames_u8: torch.Tensor, spec: LetterboxSpec,
     """frames_u8: [N, src_h, src_w, 3] uint8 BGR, contiguous. Returns the
     letterboxed RGB canvas [N, dst_h, dst_w, 3] in ``out_dtype`` (bf16 or
     fp32), NHWC-contiguous."""
+    global _launch
     if frames_u8.device.type == "cpu":
         return letterbox_plain(frames_u8, spec, out_dtype)
     dev = _cuda.require_cuda("letterbox", frames_u8)
@@ -112,13 +114,16 @@ def letterbox(frames_u8: torch.Tensor, spec: LetterboxSpec,
     n = frames_u8.shape[0]
     taps, weights = _tables(spec, dev)
     out = torch.empty((n, spec.dst_h, spec.dst_w, 3), dtype=out_dtype, device=dev)
-    rc = _cuda.lib().rva_letterbox(
-        dev.index or 0, frames_u8.data_ptr(), out.data_ptr(), taps.data_ptr(),
+    if _launch is None:
+        _launch = _cuda.entry("rva_letterbox")
+    rc = _launch(
+        dev.index, frames_u8.data_ptr(), out.data_ptr(), taps.data_ptr(),
         weights.data_ptr(), n, spec.src_h, spec.src_w, spec.dst_h, spec.dst_w,
         spec.new_h, spec.new_w, spec.pad_top, spec.pad_left,
-        int(out_dtype == torch.bfloat16), _cuda.stream_of(frames_u8),
+        int(out_dtype == torch.bfloat16), _cuda.stream_of(dev.index),
     )
-    _cuda.check(rc, "letterbox")
+    if rc:
+        _cuda.fail(rc, "letterbox")
     _cuda.LAUNCHES.add("letterbox")
     return out
 

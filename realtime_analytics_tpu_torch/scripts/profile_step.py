@@ -21,8 +21,10 @@ frames (an exact 3x host pick, the selected step) and reports:
    at a 20x shorter one;
 5. ``trace``: a ``torch.profiler`` window over ``--trace-steps`` steps: the
    device's busy time (kernels and copies, overlaps merged) and its idle
-   share of the window, device time by kernel name per step, and the host
-   calls that wait for the device per step.
+   share of the window, device time by kernel name per step (the 25
+   largest, and under ``port_kernels_ms_per_step`` each hand-written kernel
+   of ``csrc/`` by its function name, the two stem kernels apart), and the
+   host calls that wait for the device per step.
 
 It needs a CUDA card and fails without one. Every number names the card
 and its power limit.
@@ -45,6 +47,9 @@ import torch
 
 STAGES = ("host_pick", "upload", "pad_cast", "forward", "select_nms",
           "unletterbox_download")
+# the __global__ functions of csrc/*.cu, as they appear in a trace
+PORT_KERNELS = ("row_gather_kernel", "decode_v8_kernel", "stem_mma_kernel",
+                "stem_general_kernel", "letterbox_kernel")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpyAsync", "cudaMemcpy")
 
@@ -218,6 +223,12 @@ def trace(eng, frames: np.ndarray, steps: int) -> dict:
         by_name[e.name][0] += e.time_range.end - e.time_range.start
         by_name[e.name][1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
+    port = {}
+    for kernel in PORT_KERNELS:
+        hits = [v for name, v in by_name.items() if kernel in name]
+        if hits:
+            port[kernel] = dict(ms=sum(us for us, _ in hits) / 1e3 / steps,
+                                per_step=sum(cnt for _, cnt in hits) / steps)
     host_waits = defaultdict(int)
     for e in events:
         if e.device_type == DeviceType.CPU and e.name in SYNC_CALLS:
@@ -231,6 +242,7 @@ def trace(eng, frames: np.ndarray, steps: int) -> dict:
             dict(name=name[:120], ms=us / 1e3 / steps, per_step=cnt / steps)
             for name, (us, cnt) in top
         ],
+        port_kernels_ms_per_step=port,
         host_waits_per_step={k: v / steps for k, v in host_waits.items()},
     )
 

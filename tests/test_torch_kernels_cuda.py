@@ -7,7 +7,8 @@ and skip elsewhere. Run them on a machine with the card:
 
 Whether a card is present is decided inside the ``card`` fixture, never at
 import time, so every pytest-xdist worker collects the same tests.
-Tolerances: B1 bit-exact; B2 boxes atol 1e-3 px, conf atol 1e-5, classes
+B3 runs both of its kernels (``stem_instantiation`` says which a case
+takes). Tolerances: B1 bit-exact; B2 boxes atol 1e-3 px, conf atol 1e-5, classes
 exact; B3 fp32 atol 1e-4, bf16 within 1% of the output range (P1 is rounded
 to bf16 in both versions; accumulation order may flip one rounding); B4 pad
 exact, content within one uint8 level (plus one bf16 ulp in bf16) on under
@@ -29,6 +30,7 @@ from realtime_analytics_tpu_torch.ops.stem import (
     fused_stem_p1p2,
     fused_stem_p1p2_plain,
     prepare_stem,
+    stem_instantiation,
 )
 
 pytestmark = pytest.mark.cuda
@@ -45,7 +47,13 @@ def card():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("n,m,p,k", [(32, 8400, 4, 512), (32, 512, 6, 300), (3, 100, 6, 7)])
+@pytest.mark.parametrize("n,m,p,k", [
+    (32, 8400, 4, 512), (32, 512, 6, 300), (3, 100, 6, 7),
+    (4, 1000, 1, 130),   # 4-byte rows; k not a multiple of the block
+    (1, 8400, 4, 512),   # n = 1, 16-byte rows
+    (2, 777, 5, 129),    # odd width: 4-byte moves
+    (5, 64, 6, 1),       # 8-byte moves, one row a batch
+])
 def test_row_gather_bit_exact(card, n, m, p, k):
     g = torch.Generator(device=card).manual_seed(n + m + p + k)
     payload = torch.randn(n, m, p, generator=g, device=card) * 640
@@ -62,12 +70,34 @@ def test_row_gather_bit_exact(card, n, m, p, k):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def test_row_gather_unaligned_view_bit_exact(card):
+    """A contiguous payload that starts 4 bytes into its storage: the
+    16-byte path's alignment does not hold, the copy is still exact."""
+    g = torch.Generator(device=card).manual_seed(7)
+    flat = torch.randn(2 * 50 * 4 + 1, generator=g, device=card)
+    payload = flat[1:].view(2, 50, 4)
+    idx = torch.randint(0, 50, (2, 9), generator=g, device=card)
+    got, want = row_gather(payload, idx), row_gather_plain(payload, idx)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def test_row_gather_rejects_what_it_does_not_take(card):
     payload = torch.zeros(2, 10, 4, device=card)
+    idx = torch.zeros(2, 3, dtype=torch.int64, device=card)
+    before = _cuda.LAUNCHES.snapshot()["row_gather"]
     with pytest.raises(TypeError):
-        row_gather(payload, torch.zeros(2, 3, dtype=torch.int32, device=card))
+        row_gather(payload, idx.int())
+    with pytest.raises(TypeError):  # a CUDA tensor of the wrong dtype
+        row_gather(payload.half(), idx)
+    with pytest.raises(TypeError):
+        row_gather(payload.double(), idx)
     with pytest.raises(ValueError):
-        row_gather(payload[:, ::2], torch.zeros(2, 3, dtype=torch.int64, device=card))
+        row_gather(payload[:, ::2], idx)
+    with pytest.raises(ValueError):  # one tensor on the card, one not
+        row_gather(payload, idx.cpu())
+    with pytest.raises(ValueError):
+        row_gather(payload[0], idx)
+    assert _cuda.LAUNCHES.snapshot()["row_gather"] == before  # nothing was launched
 
 
 @pytest.mark.parametrize("h,w,nc,dtype", [
@@ -93,12 +123,23 @@ def test_decode_requires_nhwc_contiguous(card):
         decode_v8_level(box, cls, stride=8.0)
 
 
-@pytest.mark.parametrize("dtype,n,h,w,c0,c1", [
-    (torch.bfloat16, 4, 640, 640, 16, 32),
-    (torch.float32, 2, 128, 96, 16, 32),
-    (torch.float32, 2, 68, 36, 32, 64),  # ragged tiles (H/4, W/4 not multiples of 8)
+@pytest.mark.parametrize("dtype,n,h,w,c0,c1,kind", [
+    (torch.bfloat16, 4, 640, 640, 16, 32, "mma"),
+    (torch.float32, 2, 128, 96, 16, 32, "general"),
+    (torch.float32, 2, 68, 36, 32, 64, "general"),  # ragged tiles (H/4, W/4 off the tile)
+    (torch.bfloat16, 2, 640, 640, 32, 64, "mma"),   # v8s
+    (torch.bfloat16, 1, 640, 640, 16, 32, "mma"),
+    (torch.bfloat16, 3, 360, 640, 16, 32, "mma"),   # non-square, ragged tile rows
+    (torch.bfloat16, 3, 72, 40, 16, 32, "mma"),     # ragged tile rows and columns
+    (torch.bfloat16, 1, 64, 64, 48, 96, "mma"),     # v8m widths
+    (torch.bfloat16, 2, 64, 64, 16, 24, "mma"),     # a 3-tile channel chunk
+    (torch.bfloat16, 2, 64, 64, 8, 24, "general"),  # widths off the fragment multiples
+    (torch.bfloat16, 2, 64, 68, 16, 32, "general"),  # W * 6 bytes not 16-byte aligned
+    (torch.float32, 3, 360, 640, 16, 32, "general"),
+    (torch.float32, 1, 64, 64, 6, 10, "general"),   # widths off multiples of 4
 ])
-def test_stem_matches_plain(card, dtype, n, h, w, c0, c1):
+def test_stem_matches_plain(card, dtype, n, h, w, c0, c1, kind):
+    assert stem_instantiation(dtype, c0, c1, w) == kind
     g = torch.Generator(device=card).manual_seed(h + w + c0)
     sw = prepare_stem(
         torch.randn(c0, 3, 3, 3, generator=g, device=card) * 0.3 / 255,
@@ -108,13 +149,33 @@ def test_stem_matches_plain(card, dtype, n, h, w, c0, c1):
         dtype,
     )
     x = torch.randint(0, 256, (n, h, w, 3), generator=g, device=card).to(dtype)
+    before = _cuda.LAUNCHES.snapshot()["fused_stem"]
     got = fused_stem_p1p2(x, sw).float()
+    assert _cuda.LAUNCHES.snapshot()["fused_stem"] == before + 1
     want = fused_stem_p1p2_plain(x, sw).float()
     assert got.shape == (n, h // 4, w // 4, c1)
     err = (got - want).abs().max().item()
     tol = 1e-2 * want.abs().max().item() if dtype == torch.bfloat16 else 1e-4
     assert err <= tol, err
     assert np.isfinite(got.cpu().numpy()).all()
+
+
+def test_stem_rejects_what_it_does_not_take(card):
+    sw = prepare_stem(torch.zeros(16, 3, 3, 3, device=card), torch.zeros(16, device=card),
+                      torch.zeros(32, 16, 3, 3, device=card), torch.zeros(32, device=card),
+                      torch.bfloat16)
+    x = torch.zeros(1, 64, 64, 3, device=card)
+    with pytest.raises(TypeError):  # fp32 input against bf16 weights
+        fused_stem_p1p2(x, sw)
+    with pytest.raises(TypeError):
+        fused_stem_p1p2(x.half(), sw)
+    with pytest.raises(ValueError):  # H % 4
+        fused_stem_p1p2(x.bfloat16()[:, :62], sw)
+    with pytest.raises(ValueError):  # not contiguous
+        fused_stem_p1p2(torch.zeros(1, 64, 128, 3, device=card).bfloat16()[:, :, ::2], sw)
+    with pytest.raises(ValueError):  # a contiguous view 2 bytes into its storage
+        flat = torch.zeros(64 * 64 * 3 + 1, device=card).bfloat16()
+        fused_stem_p1p2(flat[1:].view(1, 64, 64, 3), sw)
 
 
 @pytest.mark.parametrize("src_hw,dst_hw,stretch,dtype", [

@@ -216,3 +216,61 @@ def test_nms_gather_indices_in_range(monkeypatch):
     assert len(seen) == 2
     for m, lo, hi in seen:
         assert 0 <= lo and hi < m
+
+
+def test_row_gather_cpu_rejects_mixed_devices_and_ranks():
+    """The slimmed wrapper still guards the kernel: what is not two CPU
+    tensors and not two tensors of one CUDA device raises."""
+    payload = torch.zeros(2, 10, 4)
+    idx = torch.zeros(2, 3, dtype=torch.int64)
+    assert row_gather(payload, idx).shape == (2, 3, 4)
+    with pytest.raises(ValueError):
+        row_gather(payload.to("meta"), idx)
+    with pytest.raises(ValueError):
+        row_gather(payload, idx.to("meta"))
+
+
+def test_launch_counter_loses_no_count_across_threads():
+    """Each thread counts in its own table without a lock; snapshots sum
+    them, and a reset while launches are in flight loses none: the count
+    read just before a reset plus the count read at the end is every add."""
+    import sys
+    import threading
+
+    from realtime_analytics_tpu_torch.ops._cuda import KERNELS, LaunchCounter
+
+    counter = LaunchCounter()
+    workers, adds = 16, 5000
+    start = threading.Barrier(workers + 1)
+
+    def work(i):
+        start.wait(timeout=30)
+        for _ in range(adds):
+            counter.add(KERNELS[i % len(KERNELS)])
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(workers)]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for th in threads:
+            th.start()
+        start.wait(timeout=30)
+        seen = dict.fromkeys(KERNELS, 0)
+        for _ in range(50):  # resets racing the adds
+            with counter._lock:  # read and reset as one step
+                sums = counter._sums()
+                for k in KERNELS:
+                    seen[k] += sums[k] - counter._base[k]
+                counter._base = sums
+        for th in threads:
+            th.join(timeout=60)
+            assert not th.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    last = counter.snapshot()
+    per_kernel = workers // len(KERNELS) * adds
+    assert {k: seen[k] + last[k] for k in KERNELS} == dict.fromkeys(KERNELS, per_kernel)
+    counter.reset()
+    assert counter.snapshot() == dict.fromkeys(KERNELS, 0)
+    counter.add("row_gather")
+    assert counter.snapshot()["row_gather"] == 1
