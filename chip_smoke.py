@@ -14,17 +14,23 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
 3. each kernel against its plain PyTorch version on the card, at the shapes
    its paths give it (B1 row gather, with its device time from a replayed
    CUDA graph and the host's cost per call, beside ``torch.gather``'s; B2
-   head decode; B3 fused stem: N=32, 640 input, bf16 on the tensor cores at
-   the v8n and v8s widths and fp32 on the general kernel, plus two small
-   general-kernel cases, each printed with the instantiation it took; B4
-   letterbox: 32 x 1080p -> 640 (H
-   select), 32 x 720p -> 640 (H mean2), 32 x 1520x2688 -> 640 (H
-   fractional), all bf16, 32 x 1080p -> 224x224 fp32, the ResNet
-   stretch, and 64 x 1080p -> 224x224 and -> 112x112 fp32, the temporal
-   clip stretches), timed with CUDA events next to its plain version, the one
-   PyTorch call that computes the same function where there is one, and
-   its bound (the larger of bytes over 3.35 TB/s and operations over the
-   dtype's dense peak, H100 SXM data sheet);
+   head decode: the three levels of the 640 head, N=32, bf16, in one launch
+   with tied maxima planted, its device time and host cost beside the same
+   head decoded level by level, then fp32, class counts that take the
+   element instantiation, ragged levels, an unaligned view, one level, and
+   NaN and inf logits, each printed with the instantiation it took; B3
+   fused stem: N=32, 640 input, bf16 on the tensor cores at the v8n and v8s
+   widths and fp32 on the general kernel, plus two small general-kernel
+   cases, each printed with the instantiation it took; B4 letterbox:
+   32 x 1080p -> 640 (H select), 32 x 720p -> 640 (H mean2),
+   32 x 1520x2688 -> 640 (H fractional), all bf16, 32 x 1080p -> 224x224
+   fp32, the ResNet stretch, 64 x 1080p -> 224x224 and -> 112x112 fp32,
+   the temporal clip stretches, and a 97x211 source, whose rows take the
+   element instantiation, each bit-equal to the plain version), timed with
+   CUDA events next to its plain version, the one PyTorch call that computes
+   the same function where there is one, and its bound (the larger of bytes
+   over 3.35 TB/s and operations over the dtype's dense peak, H100 SXM data
+   sheet);
 4. the main path: ``TorchYoloEngine`` (YOLOv8n, 640, bf16, bucket 32,
    seeded He-scaled weights) on 32 synthetic 1080p frames through
    ``predict_arrays`` (host pick -> selected step), held against the same
@@ -51,8 +57,9 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
 
 Every path of phases 4-8 runs with the launch counters set to 0 just
 before and read just after; each fails unless the kernels it runs were
-launched. A kernel's ``launches`` in the kernels line is its count on one
-step of the path its row times (the main path for B1-B3, the
+launched (the YOLO steps: ``decode_v8`` exactly once). A kernel's
+``launches`` in the kernels line is its count on one step of the path its
+row times (the main path for B1-B3, the
 device-resize step for B4), and ``launches_by_path`` holds each path's own
 count. Any failure exits non-zero without the last line; so does a
 machine with no visible CUDA card, or a directory without the package.
@@ -76,6 +83,7 @@ HW = 640
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
 ROOT = Path(__file__).resolve().parent
+CARD = ""  # nvidia-smi's name and power limit: main() sets it, every result line carries it
 
 
 def log(msg: str) -> None:
@@ -207,7 +215,7 @@ def check_gather(gen):
                          device_us=graph_us(lambda: row_gather(payload, idx)),
                          host_us=host["kernel"], library_device_us=graph_us(library),
                          library_host_us=host["library"]))
-    log("B1 " + json.dumps(rows))
+    log("B1 " + json.dumps(dict(rows=rows, card=CARD)))
     first = rows[0]
     return dict(name="row_gather", route="cuda",
                 source="realtime_analytics_tpu_torch/csrc/gather.cu",
@@ -218,48 +226,114 @@ def check_gather(gen):
 
 
 def check_decode(gen):
+    """B2 against its plain version: the whole head in one launch at the
+    main path's shapes with tied maxima planted, then the kernel's other
+    instantiation and edge shapes at small sizes."""
     from realtime_analytics_tpu_torch.ops.decode import (
+        decode_instantiation,
         decode_v8_level,
         decode_v8_level_plain,
+        decode_v8_levels,
+        decode_v8_levels_plain,
     )
 
-    levels = []
-    for h, stride in ((HW // 8, 8.0), (HW // 16, 16.0), (HW // 32, 32.0)):
-        box = (torch.randn(N, h, h, 64, generator=gen, device="cuda") * 3).bfloat16()
-        cls = (torch.randn(N, h, h, 80, generator=gen, device="cuda") * 3).bfloat16()
+    def head(n, shapes, nc, dtype):
+        return [((torch.randn(n, h, w, 64, generator=gen, device="cuda") * 3).to(dtype),
+                 (torch.randn(n, h, w, nc, generator=gen, device="cuda") * 3).to(dtype))
+                for h, w in shapes]
+
+    def case(name, levels, strides, want_kind, fn=decode_v8_levels, nan=False):
+        """Largest box and conf errors against the plain version; class
+        ids equal; the instantiation the call took."""
+        dtype, nc = levels[0][0].dtype, levels[0][1].shape[-1]
+        kind = decode_instantiation(
+            dtype, nc, all(t.data_ptr() % 16 == 0 for lvl in levels for t in lvl))
+        assert kind == want_kind, f"B2 {name} took {kind}, not {want_kind}"
+        got, want = fn(levels, strides), decode_v8_levels_plain(levels, strides)
+        torch.cuda.synchronize()
+        assert got[0].shape == want[0].shape and got[2].dtype == torch.int32
+        assert torch.equal(got[2], want[2]), f"B2 {name}: class ids differ"
+        if nan:  # NaN and inf logits give NaN and inf in the same places
+            for g, w in zip(got[:2], want[:2]):
+                assert torch.equal(g.isnan(), w.isnan()), f"B2 {name}: NaNs differ"
+            got = [t.nan_to_num(0.0, 0.0, 0.0) for t in got[:2]]
+            want = [t.nan_to_num(0.0, 0.0, 0.0) for t in want[:2]]
+        err_box = (got[0] - want[0]).abs().max().item()
+        err_conf = (got[1] - want[1]).abs().max().item()
+        log(f"B2 {name} ({kind}) {str(dtype)[6:]} nc={nc} "
+            f"{[tuple(b.shape[:3]) for b, _ in levels]}: max |boxes| err {err_box:.3g} px "
+            f"(tol 1e-3), max |conf| err {err_conf:.3g} (tol 1e-5), cls exact")
+        assert err_box <= 1e-3 and err_conf <= 1e-5, f"B2 {name} disagrees"
+        return got, dict(kernel=kind, box_err_px=err_box, conf_err=err_conf)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    strides = (8.0, 16.0, 32.0)
+    levels = head(N, [(HW // 8,) * 2, (HW // 16,) * 2, (HW // 32,) * 2], 80, bf16)
+    for _, cls in levels:
         cls[:, 0] = 0.0                      # all 80 tied: class 0 must win
         cls[:, 1, :, 10] = 40.0              # two-way tie at the max:
         cls[:, 1, :, 20] = 40.0              # class 10 must win
-        levels.append((box, cls, stride))
-    err_box = err_conf = 0.0
-    for box, cls, stride in levels:
-        got = decode_v8_level(box, cls, stride=stride)
-        want = decode_v8_level_plain(box, cls, stride=stride)
-        err_box = max(err_box, (got[0] - want[0]).abs().max().item())
-        err_conf = max(err_conf, (got[1] - want[1]).abs().max().item())
-        assert torch.equal(got[2], want[2]), "B2 class ids differ"
-        assert bool((got[2][:, : box.shape[2]] == 0).all())
-        assert bool((got[2][:, box.shape[2]: 2 * box.shape[2]] == 10).all())
-    log(f"B2 max |boxes| err {err_box:.3g} px (tol 1e-3), max |conf| err "
-        f"{err_conf:.3g} (tol 1e-5), cls exact")
-    assert err_box <= 1e-3 and err_conf <= 1e-5
+        cls[:, 2, :, 8] = 40.0               # a tie across two lanes' chunks,
+        cls[:, 2, :, 7] = 40.0               # (7 | 8): class 7 must win
+        cls[:, 3, :, 79] = 40.0              # a tie inside the last chunk:
+        cls[:, 3, :, 74] = 40.0              # class 74 must win
+    got, main = case("head", levels, strides, "vec16")
+    offset = 0
+    for box, _ in levels:  # the planted rows, in the concatenated output
+        w = box.shape[2]
+        for row, winner in enumerate((0, 10, 7, 74)):
+            ids = got[2][:, offset + row * w: offset + (row + 1) * w]
+            assert bool((ids == winner).all()), f"B2 tie row {row}: class {winner} must win"
+        offset += box.shape[1] * w
 
-    def run(fn):
-        return lambda: [fn(b, c, stride=s) for b, c, s in levels]
+    cases = {"head": main}
+    small = [(20, 20), (10, 10), (5, 5)]
+    cases["fp32"] = case("fp32", head(4, small, 80, f32), strides, "vec16")[1]
+    cases["nc3"] = case("nc=3", head(4, small, 3, bf16), strides, "element")[1]
+    cases["nc81_fp32"] = case("nc=81", head(4, small, 81, f32), strides, "element")[1]
+    cases["ragged"] = case("ragged", head(3, [(9, 13), (5, 7), (3, 2), (1, 1)], 80, bf16),
+                           (8.0, 16.0, 32.0, 64.0), "vec16")[1]
+    flat = torch.randn(2 * 6 * 6 * 80 + 1, generator=gen, device="cuda").to(bf16)
+    view = [(head(2, [(6, 6)], 80, bf16)[0][0], flat[1:].view(2, 6, 6, 80))]
+    cases["unaligned"] = case("unaligned view", view, (8.0,), "element")[1]
+    cases["one_level"] = case(
+        "decode_v8_level", head(5, [(7, 3)], 80, bf16), (16.0,), "vec16",
+        fn=lambda lv, st: decode_v8_level(*lv[0], stride=st[0]))[1]
+    extreme = head(2, [(8, 8)], 80, f32)
+    box, cls = extreme[0]
+    box[0, 0, 0, :16], box[0, 0, 0, 0] = -100.0, 100.0   # a one-hot side
+    box[0, 1, 0, 3], box[0, 1, 1, 20] = float("inf"), float("nan")
+    box[0, 1, 2, 40:48] = -float("inf")
+    cls[0, 2, 0, 50], cls[0, 2, 1, [5, 60]] = float("nan"), float("nan")
+    cls[0, 2, 2, 9], cls[0, 2, 3] = float("inf"), -float("inf")
+    cases["extreme"] = case("NaN and inf logits", extreme, (8.0,), "vec16", nan=True)[1]
 
-    ms = cuda_ms(run(decode_v8_level))
-    plain_ms = cuda_ms(run(decode_v8_level_plain))
-    anchors = sum(b.shape[1] * b.shape[2] for b, _, _ in levels) * N
+    def run():
+        return decode_v8_levels(levels, strides)
+
+    def run_plain():
+        return decode_v8_levels_plain(levels, strides)
+
+    def run_by_level():  # the head as three one-level launches and three cats
+        parts = [decode_v8_level(b, c, stride=s) for (b, c), s in zip(levels, strides)]
+        return [torch.cat(p, dim=1) for p in zip(*parts)]
+
+    ms, plain_ms = cuda_ms(run), cuda_ms(run_plain)
+    by_level_ms = cuda_ms(run_by_level)
+    host = host_us(dict(kernel=run, by_level=run_by_level))
+    anchors = sum(b.shape[1] * b.shape[2] for b, _ in levels) * N
     nbytes = anchors * ((64 + 80) * 2 + (4 + 1 + 1) * 4)
     flops = anchors * 480.0  # 4 x 16-bin max/exp/num/den + 80-way max + box
     b_ms, b_by = bound(nbytes, flops, torch.float32)
     row = dict(name="decode_v8", route="cuda",
                source="realtime_analytics_tpu_torch/csrc/decode.cu",
                replaces="realtime_analytics_tpu/ops/pallas_decode.py:61",
-               max_abs_err=max(err_box, err_conf), ms=ms, plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log("B2 " + json.dumps(dict(row, anchors=anchors, bytes=nbytes,
-                                box_err_px=err_box, conf_err=err_conf)))
+               max_abs_err=max(main["box_err_px"], main["conf_err"]), ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log("B2 " + json.dumps(dict(
+        row, anchors=anchors, bytes=nbytes, launches_per_head=1, by_level_ms=by_level_ms,
+        device_us=graph_us(run), host_us=host["kernel"], by_level_host_us=host["by_level"],
+        cases=cases, card=CARD)))
     return row
 
 
@@ -345,7 +419,7 @@ def check_stem(gen):
         "bf16_ragged": case("ragged", b16, (3, 72, 40), 16, 32, "mma", False),
     }
     torch.cuda.empty_cache()
-    log("B3 " + json.dumps(out))
+    log("B3 " + json.dumps(dict(out, card=CARD)))
     bf = out["bf16"]
     return dict(name="fused_stem", route="cuda",
                 source="realtime_analytics_tpu_torch/csrc/stem.cu",
@@ -371,16 +445,19 @@ def letterbox_bound(spec, n: int, dtype: torch.dtype):
 
 
 def check_letterbox(gen):
-    """B4 against its plain version, one case per H mode of the TPU kernel
-    and the ResNet stretch. Held: the pad exactly 114/255; the content
-    within one uint8 level (plus one bf16 ulp in bf16) of the plain
-    version, on under 1% of the pixels (both run the same tables in the
-    same fp32 order, so they should agree bit for bit)."""
+    """B4 against its plain version, one case per H mode of the TPU kernel,
+    the ResNet and clip stretches, and a source width whose rows are not
+    whole 16-byte units. Held: the pad exactly 114/255 and the whole canvas
+    bit-equal to the plain version (both run the same tables in the same
+    fp32 order without FMA; a tap of weight 0 that the kernel leaves out
+    changes no bit)."""
     import torch.nn.functional as F
 
     from realtime_analytics_tpu_torch.ops.letterbox import (
         letterbox,
+        letterbox_instantiation,
         letterbox_plain,
+        letterbox_plan,
         stretch_spec,
     )
     from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
@@ -391,14 +468,20 @@ def check_letterbox(gen):
              ("matmul", N, (1520, 2688), (640, 640), False, torch.bfloat16),
              ("stretch", N, (1080, 1920), (224, 224), True, torch.float32),
              ("clip_224", 64, (1080, 1920), (224, 224), True, torch.float32),
-             ("clip_112", 64, (1080, 1920), (112, 112), True, torch.float32))
+             ("clip_112", 64, (1080, 1920), (112, 112), True, torch.float32),
+             ("odd_width", 8, (97, 211), (128, 128), False, torch.bfloat16))
     rows = {}
     for name, n, src, dst, stretch, dtype in cases:
         frames = torch.randint(0, 256, (n, *src, 3), generator=gen, device="cuda",
                                dtype=torch.uint8)
         spec = stretch_spec(src, dst) if stretch else letterbox_spec(src, dst)
+        kind = letterbox_instantiation(spec.src_w, spec.dst_w, dtype,
+                                       frames.data_ptr() % 16 == 0)
+        assert kind == ("element" if name == "odd_width" else "vec16"), f"B4 {name}: {kind}"
+        plan = letterbox_plan(spec, dtype, kind)
         got, want = letterbox(frames, spec, dtype), letterbox_plain(frames, spec, dtype)
         torch.cuda.synchronize()
+        bit_equal = torch.equal(got, want)
         content = torch.zeros(dst, dtype=torch.bool, device="cuda")
         content[spec.pad_top:spec.pad_top + spec.new_h,
                 spec.pad_left:spec.pad_left + spec.new_w] = True
@@ -412,10 +495,10 @@ def check_letterbox(gen):
         diff = (got.float() - want.float()).abs()[:, content]
         err = diff.max().item()
         share = (diff.amax(-1) > 0).float().mean().item()
-        tol = 1.0 / 255.0 + (2.0 ** -8 if dtype == torch.bfloat16 else 1e-6)
-        log(f"B4 {name} {n}x{src}->{dst} {str(dtype)[6:]}: pad exact {pad_exact}, max "
-            f"|content| err {err:.4g} (tol {tol:.4g}), pixels differing {share:.5f} (< 0.01)")
-        assert pad_exact and err <= tol and share < 0.01, f"B4 {name} disagrees"
+        log(f"B4 {name} ({kind}, {'span' if plan.dense else 'in place'}) {n}x{src}->{dst} "
+            f"{str(dtype)[6:]}: bit-equal {bit_equal}, pad exact {pad_exact}, max |content| "
+            f"err {err:.4g}, pixels differing {share:.5f}")
+        assert pad_exact and bit_equal, f"B4 {name} disagrees"
         ms = cuda_ms(lambda: letterbox(frames, spec, dtype), iters=20)
         plain_ms = cuda_ms(lambda: letterbox_plain(frames, spec, dtype), iters=5, warmup=1)
         nchw = frames.permute(0, 3, 1, 2).float()  # the resize alone, no round/pad/flip
@@ -425,10 +508,12 @@ def check_letterbox(gen):
         del nchw, got, want
         b_ms, b_by, nbytes, flops, tapped = letterbox_bound(spec, n, dtype)
         rows[name] = dict(n=n, src=list(src), dst=list(dst), dtype=str(dtype)[6:],
-                          max_abs_err=err, pixels_differing=share, ms=ms,
-                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                          bound_by=b_by, bytes=nbytes, flops=flops, rows_tapped=tapped)
-    log("B4 " + json.dumps(rows))
+                          kernel=kind, staging="span" if plan.dense else "in_place",
+                          seg_w=plan.seg_w, smem_bytes=plan.smem_bytes, max_abs_err=err,
+                          pixels_differing=share, ms=ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                          flops=flops, rows_tapped=tapped)
+    log("B4 " + json.dumps(dict(rows, card=CARD)))
     yolo = rows["mean2"]  # the YOLO device-resize step's shape (phase 5)
     return dict(name="letterbox", route="cuda",
                 source="realtime_analytics_tpu_torch/csrc/letterbox.cu",
@@ -512,6 +597,7 @@ def run_engine(params, frames):
     launches = _cuda.LAUNCHES.snapshot()
     log(f"main path launches {json.dumps(launches)}")
     require_launched("main path", launches, ("row_gather", "decode_v8", "fused_stem"))
+    assert launches["decode_v8"] == 1, "the head must decode in one launch a step"
     b = res.boxes_xyxy
     assert b.shape == (N, 300, 4) and np.isfinite(b).all() and np.isfinite(res.scores).all()
     assert (res.num_valid > 0).all(), "no detections on a frame at conf 0.005"
@@ -583,7 +669,9 @@ def run_device_resize(params, frames):
     res = eng.predict_arrays(frames)
     launches = _cuda.LAUNCHES.snapshot()
     log(f"device-resize path launches {json.dumps(launches)}")
-    require_launched("device-resize path", launches, ("letterbox", "fused_stem"))
+    require_launched("device-resize path", launches,
+                     ("letterbox", "fused_stem", "decode_v8", "row_gather"))
+    assert launches["decode_v8"] == 1, "the head must decode in one launch a step"
     assert np.isfinite(res.boxes_xyxy).all() and (res.num_valid > 0).all()
 
     # bf16 model outputs, B4 on vs off, within the bf16 fidelity bound. At
@@ -840,7 +928,8 @@ def main() -> int:
     # without the package beside it this fails here, before any output
     from realtime_analytics_tpu_torch.ops import _cuda
 
-    card = card_line()
+    global CARD
+    CARD = card = card_line()
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")

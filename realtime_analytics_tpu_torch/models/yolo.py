@@ -27,7 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..ops.decode import REG_MAX, decode_v8_level, decode_v8_level_plain
+from ..ops.decode import REG_MAX, decode_v8_levels, decode_v8_levels_plain
 from ..ops.stem import (
     StemWeights,
     fused_stem_p1p2,
@@ -138,10 +138,8 @@ class DetectV8(nn.Module):
 
     def forward(self, feats: Sequence[torch.Tensor], reduce_scores: bool,
                 decode: str) -> Dict[str, torch.Tensor]:
-        boxes_all, scores_all, conf_all, cls_all = [], [], [], []
+        levels = []
         for lvl, x in enumerate(feats):
-            stride = float(STRIDES[lvl])
-            n, _, h, w = x.shape
             box_f, cls_f = x, x
             for blk in self.cv2[lvl]:
                 box_f = blk(box_f)
@@ -149,26 +147,20 @@ class DetectV8(nn.Module):
                 cls_f = blk(cls_f)
             # NHWC views of the channels_last logits (a no-op layout check:
             # convs on channels_last inputs already return channels_last)
-            box_f = box_f.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-            cls_f = cls_f.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-            if reduce_scores:
-                fn = decode_v8_level if decode != "off" else decode_v8_level_plain
-                boxes, conf, cls_ids = fn(box_f, cls_f, stride=stride)
-                conf_all.append(conf)
-                cls_all.append(cls_ids)
-            else:
-                boxes, _, _ = decode_v8_level_plain(box_f, cls_f, stride=stride)
-                scores_all.append(
-                    torch.sigmoid(cls_f.to(torch.float32)).reshape(n, h * w, self.nc)
-                )
-            boxes_all.append(boxes)
-        out = {"boxes_xyxy": torch.cat(boxes_all, dim=1)}
+            levels.append((
+                box_f.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1),
+                cls_f.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1),
+            ))
+        strides = [float(s) for s in STRIDES[:len(levels)]]
         if reduce_scores:
-            out["conf"] = torch.cat(conf_all, dim=1)
-            out["cls"] = torch.cat(cls_all, dim=1)
-        else:
-            out["scores"] = torch.cat(scores_all, dim=1)
-        return out
+            # the whole head in one call: on the card one launch that writes
+            # the concatenated outputs
+            fn = decode_v8_levels if decode != "off" else decode_v8_levels_plain
+            boxes, conf, cls_ids = fn(levels, strides)
+            return {"boxes_xyxy": boxes, "conf": conf, "cls": cls_ids}
+        boxes, _, _ = decode_v8_levels_plain(levels, strides)
+        scores = [torch.sigmoid(c.to(torch.float32)).flatten(1, 2) for _, c in levels]
+        return {"boxes_xyxy": boxes, "scores": torch.cat(scores, dim=1)}
 
 
 # ---------------------------------------------------------------------------

@@ -198,19 +198,16 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(info.path))
-            p, i, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                            ctypes.c_float)
+            p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             # every launch entry takes the CUDA device index first
             handle.rva_row_gather.argtypes = [i, p, p, p, i, i64, i, i, p]
-            handle.rva_decode_v8.argtypes = [i, p, p, p, p, p, i, i, i, i, f,
-                                             i, p]
+            handle.rva_decode_v8_levels.argtypes = [i, *[p] * 12, i, i, i, p]
             handle.rva_fused_stem.argtypes = [i, p, p, p, p, p, p, p, p, i, i,
                                               i, i, i, i, i, p]
-            handle.rva_letterbox.argtypes = [i, p, p, p, p, i, i, i, i, i, i,
-                                             i, i, i, i, p]
+            handle.rva_letterbox.argtypes = [i, p, p, p, p, p, *[i] * 15, p]
             handle.rva_cuda_error_string.argtypes = [i]
             handle.rva_cuda_error_string.restype = ctypes.c_char_p
-            for fn in ("rva_row_gather", "rva_decode_v8", "rva_fused_stem",
+            for fn in ("rva_row_gather", "rva_decode_v8_levels", "rva_fused_stem",
                        "rva_letterbox"):
                 getattr(handle, fn).restype = i
             _lib = handle

@@ -4,8 +4,15 @@ Counterpart of ``realtime_analytics_tpu/ops/pallas_preprocess.py`` (Pallas
 ``_kernel``, reached from ``pallas_letterbox`` and
 ``pallas_stretch_resize``). On the card ``letterbox`` and
 ``stretch_resize`` launch the hand-written kernel of ``csrc/letterbox.cu``:
-one thread per output pixel, taps and weights from small per-axis tables
-that are built once per geometry and kept on the device.
+a block per segment of an output row stages the source bytes its taps touch
+in shared memory (16-byte units, a tap of weight 0 not read) and writes the
+row in 16-byte stores; where the taps lie far apart it reads them in place
+and stores each pixel as computed. Taps and weights come from small per-axis
+tables and each segment's byte span from ``letterbox_plan``, all built once
+per geometry and kept on the device. The kernel has two instantiations,
+``letterbox_instantiation`` says which a call takes: ``vec16`` (source and
+output rows whole multiples of 16 bytes, bases aligned) and ``element``
+(any width).
 ``letterbox_plain`` and ``stretch_resize_plain`` are the same function in
 plain PyTorch on the same tables, in the same order (row gather, H pass,
 column gather, W pass), so the two agree bit for bit; the wrappers take
@@ -21,7 +28,7 @@ does, and padded with 114/255 outside the content window.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +37,14 @@ from . import _cuda
 from .preprocess import PAD_VALUE, LetterboxSpec
 
 _TABLES: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+_PREPARED: Dict[Tuple, Tuple] = {}  # a launch's constant arguments, per geometry
 _launch = None  # the bound C entry, set at the first launch
+
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory one block can ask for
+MAX_SEG_W = 1024         # output pixels of a row that one block takes
+DENSE_SRC_BYTES = 16     # source bytes per output pixel up to which a block
+#                          stages its span: every 16-byte unit of it then holds
+#                          a tap (beyond: it reads the taps in place)
 
 
 def bilinear_taps(src: int, dst: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -58,6 +72,98 @@ def _tables(spec: LetterboxSpec, device: torch.device):
         taps = torch.from_numpy(np.concatenate([y0, y1, x0, x1])).to(device)
         weights = torch.from_numpy(np.concatenate([wy, wx])).to(device)
         hit = _TABLES[key] = (taps, weights)
+    return hit
+
+
+def _round_up(v: int, unit: int) -> int:
+    return -(-v // unit) * unit
+
+
+class Plan(NamedTuple):
+    """How csrc/letterbox.cu cuts one geometry into blocks."""
+
+    kind: str          # the instantiation: "vec16" or "element"
+    seg_w: int         # output pixels of a row per block
+    spans: np.ndarray  # int32 [segments, 2]: first staged source-row byte, bytes
+    span_cap: int      # shared bytes per staged row: the longest span, to 16
+    dense: bool        # a block stages its span (else reads its taps in place)
+    threads: int
+    smem_bytes: int    # two staged rows and the output strip when dense, else 0
+
+
+def letterbox_instantiation(src_w: int, dst_w: int, out_dtype: torch.dtype,
+                            aligned: bool) -> Optional[str]:
+    """Which instantiation of the kernel a call takes: ``vec16``,
+    ``element``, or None for an output dtype it does not take.
+    ``aligned``: the frames' base pointer is a multiple of 16 bytes."""
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        return None
+    row_out = dst_w * 3 * (2 if out_dtype == torch.bfloat16 else 4)
+    vec = aligned and (3 * src_w) % 16 == 0 and row_out % 16 == 0
+    return "vec16" if vec else "element"
+
+
+def segment_spans(spec: LetterboxSpec, seg_w: int, unit: int) -> np.ndarray:
+    """Per segment of ``seg_w`` output pixels: the byte span of a source
+    row that its taps of nonzero weight touch, as (first byte, bytes), both
+    in whole ``unit``s; (0, 0) for a segment without content."""
+    x0, x1, wx = bilinear_taps(spec.src_w, spec.new_w)
+    last = np.where(wx > 0, x1, x0)  # a second tap of weight 0 is not read
+    spans = []
+    for sx in range(0, spec.dst_w, seg_w):
+        lo = max(sx - spec.pad_left, 0)
+        hi = min(min(sx + seg_w, spec.dst_w) - spec.pad_left, spec.new_w)
+        if lo >= hi:
+            spans.append((0, 0))
+            continue
+        start = int(3 * x0[lo:hi].min()) // unit * unit
+        stop = _round_up(int(3 * last[lo:hi].max()) + 3, unit)
+        spans.append((start, stop - start))
+    return np.array(spans, dtype=np.int32).reshape(-1, 2)
+
+
+def letterbox_plan(spec: LetterboxSpec, out_dtype: torch.dtype, kind: str) -> Plan:
+    """The kernel's plan for a geometry; raises where a segment would not
+    fit a block's shared memory."""
+    esz = 2 if out_dtype == torch.bfloat16 else 4
+    unit = 16 if kind == "vec16" else 1
+    dense = 3 * spec.src_w <= DENSE_SRC_BYTES * spec.new_w
+    parts = -(-spec.dst_w // MAX_SEG_W)
+    seg_w = spec.dst_w if parts == 1 else _round_up(-(-spec.dst_w // parts), 8)
+    spans = segment_spans(spec, seg_w, unit)
+    span_cap = _round_up(int(spans[:, 1].max()), 16) if dense else 0
+    smem = 2 * span_cap + _round_up(seg_w * 3 * esz, 16) if dense else 0
+    if smem > SMEM_LIMIT:  # not with the limits above: 1024 pixels x 16 bytes x 2 rows
+        raise ValueError(
+            f"letterbox: a segment of {seg_w} pixels of {spec.src_w} -> {spec.new_w} "
+            f"needs {smem} bytes of shared memory, over the {SMEM_LIMIT} a block has"
+        )
+    return Plan(kind, seg_w, spans, span_cap, dense, 256 if seg_w > 128 else 128, smem)
+
+
+def _prepared(spec: LetterboxSpec, out_dtype: torch.dtype, aligned: bool,
+              device: torch.device) -> Tuple:
+    """What a launch of one geometry passes after the frames, the output
+    and N: (tensors kept alive, table pointers, geometry and plan ints).
+    Built once per (geometry, output dtype, alignment, device)."""
+    key = (spec, out_dtype, aligned, device)
+    hit = _PREPARED.get(key)
+    if hit is None:
+        kind = letterbox_instantiation(spec.src_w, spec.dst_w, out_dtype, aligned)
+        if kind is None:
+            raise TypeError(f"letterbox: need a bf16 or fp32 output, got {out_dtype}")
+        if spec.dst_h > 65535:
+            raise ValueError(f"letterbox: {spec.dst_h} rows exceed one launch's grid")
+        plan = letterbox_plan(spec, out_dtype, kind)
+        taps, weights = _tables(spec, device)
+        spans = torch.from_numpy(plan.spans).to(device)
+        hit = _PREPARED[key] = (
+            (taps, weights, spans),
+            (taps.data_ptr(), weights.data_ptr(), spans.data_ptr()),
+            (spec.src_h, spec.src_w, spec.dst_h, spec.dst_w, spec.new_h, spec.new_w,
+             spec.pad_top, spec.pad_left, plan.seg_w, plan.span_cap, int(plan.dense),
+             plan.threads, int(kind == "vec16"), int(out_dtype == torch.bfloat16)),
+        )
     return hit
 
 
@@ -99,11 +205,8 @@ def letterbox(frames_u8: torch.Tensor, spec: LetterboxSpec,
     if frames_u8.device.type == "cpu":
         return letterbox_plain(frames_u8, spec, out_dtype)
     dev = _cuda.require_cuda("letterbox", frames_u8)
-    if frames_u8.dtype != torch.uint8 or out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(
-            f"letterbox: need uint8 frames and a bf16 or fp32 output, got "
-            f"{frames_u8.dtype} -> {out_dtype}"
-        )
+    if frames_u8.dtype != torch.uint8:
+        raise TypeError(f"letterbox: need uint8 frames, got {frames_u8.dtype}")
     if frames_u8.dim() != 4 or tuple(frames_u8.shape[1:]) != (spec.src_h, spec.src_w, 3):
         raise ValueError(
             f"letterbox: need frames [N, {spec.src_h}, {spec.src_w}, 3], got "
@@ -111,17 +214,15 @@ def letterbox(frames_u8: torch.Tensor, spec: LetterboxSpec,
         )
     if not frames_u8.is_contiguous():
         raise ValueError("letterbox: frames must be contiguous")
-    n = frames_u8.shape[0]
-    taps, weights = _tables(spec, dev)
-    out = torch.empty((n, spec.dst_h, spec.dst_w, 3), dtype=out_dtype, device=dev)
+    n, src = frames_u8.shape[0], frames_u8.data_ptr()
+    if n > 65535:
+        raise ValueError(f"letterbox: {n} frames exceed one launch's grid")
+    _, tables, geometry = _prepared(spec, out_dtype, src % 16 == 0, dev)
+    out = frames_u8.new_empty((n, spec.dst_h, spec.dst_w, 3), dtype=out_dtype)
     if _launch is None:
         _launch = _cuda.entry("rva_letterbox")
-    rc = _launch(
-        dev.index, frames_u8.data_ptr(), out.data_ptr(), taps.data_ptr(),
-        weights.data_ptr(), n, spec.src_h, spec.src_w, spec.dst_h, spec.dst_w,
-        spec.new_h, spec.new_w, spec.pad_top, spec.pad_left,
-        int(out_dtype == torch.bfloat16), _cuda.stream_of(dev.index),
-    )
+    rc = _launch(dev.index, src, out.data_ptr(), *tables, n, *geometry,
+                 _cuda.stream_of(dev.index))
     if rc:
         _cuda.fail(rc, "letterbox")
     _cuda.LAUNCHES.add("letterbox")

@@ -7,14 +7,15 @@ and skip elsewhere. Run them on a machine with the card:
 
 Whether a card is present is decided inside the ``card`` fixture, never at
 import time, so every pytest-xdist worker collects the same tests.
-B3 runs both of its kernels (``stem_instantiation`` says which a case
+B2, B3 and B4 each run both of their instantiations (``decode_instantiation``,
+``stem_instantiation`` and ``letterbox_instantiation`` say which a case
 takes). Tolerances: B1 bit-exact; B2 boxes atol 1e-3 px, conf atol 1e-5, classes
 exact; B3 fp32 atol 1e-4, bf16 within 1% of the output range (P1 is rounded
 to bf16 in both versions; accumulation order may flip one rounding); B4 pad
 exact, content within one uint8 level (plus one bf16 ulp in bf16) on under
-1% of the pixels. Both versions run the same tables in the same fp32
-order without FMA contraction, so they are expected to agree bit for bit;
-the bound is the one the port holds B4 to.
+1% of the pixels, and at the new shapes bit for bit: both versions run the
+same tables in the same fp32 order without FMA contraction, and a tap of
+weight 0 that the kernel leaves out changes no bit.
 """
 
 import numpy as np
@@ -22,9 +23,21 @@ import pytest
 import torch
 
 from realtime_analytics_tpu_torch.ops import _cuda
-from realtime_analytics_tpu_torch.ops.decode import decode_v8_level, decode_v8_level_plain
+from realtime_analytics_tpu_torch.ops.decode import (
+    decode_instantiation,
+    decode_v8_level,
+    decode_v8_level_plain,
+    decode_v8_levels,
+    decode_v8_levels_plain,
+)
 from realtime_analytics_tpu_torch.ops.gather import row_gather, row_gather_plain
-from realtime_analytics_tpu_torch.ops.letterbox import letterbox, letterbox_plain, stretch_spec
+from realtime_analytics_tpu_torch.ops.letterbox import (
+    letterbox,
+    letterbox_instantiation,
+    letterbox_plain,
+    letterbox_plan,
+    stretch_spec,
+)
 from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
 from realtime_analytics_tpu_torch.ops.stem import (
     fused_stem_p1p2,
@@ -123,6 +136,96 @@ def test_decode_requires_nhwc_contiguous(card):
         decode_v8_level(box, cls, stride=8.0)
 
 
+def _head(card, seed, n, shapes, nc, dtype):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return [((torch.randn(n, h, w, 64, generator=g, device=card) * 3).to(dtype),
+             (torch.randn(n, h, w, nc, generator=g, device=card) * 3).to(dtype))
+            for h, w in shapes]
+
+
+def _hold_levels(levels, strides, kind):
+    dtype, nc = levels[0][0].dtype, levels[0][1].shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for lvl in levels for t in lvl)
+    assert decode_instantiation(dtype, nc, aligned) == kind
+    before = _cuda.LAUNCHES.snapshot()["decode_v8"]
+    got = decode_v8_levels(levels, strides)
+    assert _cuda.LAUNCHES.snapshot()["decode_v8"] == before + 1  # one launch a head
+    want = decode_v8_levels_plain(levels, strides)
+    torch.testing.assert_close(got[0], want[0], atol=1e-3, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=0)
+    assert torch.equal(got[2], want[2]) and got[2].dtype == torch.int32
+    return got
+
+
+@pytest.mark.parametrize("n,shapes,nc,dtype,kind", [
+    (4, ((80, 80), (40, 40), (20, 20)), 80, torch.bfloat16, "vec16"),  # the main path's head
+    (2, ((40, 40), (20, 20), (10, 10)), 80, torch.float32, "vec16"),
+    (3, ((9, 13), (5, 7), (3, 2), (1, 1)), 80, torch.bfloat16, "vec16"),  # ragged, 4 levels
+    (3, ((9, 13), (5, 7)), 3, torch.bfloat16, "element"),     # fewer classes than lanes
+    (2, ((8, 8), (4, 4), (2, 2)), 81, torch.float32, "element"),
+    (2, ((8, 8), (4, 4)), 84, torch.bfloat16, "element"),     # nc % 8
+    (2, ((8, 8), (4, 4)), 104, torch.bfloat16, "vec16"),      # 13 chunks: a second batch
+    (2, ((8, 8),), 200, torch.float32, "vec16"),              # 50 chunks
+    (1, ((1, 1),), 8, torch.bfloat16, "vec16"),               # one anchor, one chunk
+])
+def test_decode_levels_match_plain(card, n, shapes, nc, dtype, kind):
+    levels = _head(card, n + nc, n, shapes, nc, dtype)
+    for _, cls in levels:
+        cls[:, 0] = 0                       # every class tied: the first wins
+        if nc > 8 and cls.shape[1] > 1:
+            cls[:, 1, :, [7, 8]] = 40.0     # a tie across two lanes' chunks
+    got = _hold_levels(levels, (8.0, 16.0, 32.0, 64.0)[:len(shapes)], kind)
+    w0 = shapes[0][1]
+    assert bool((got[2][:, :w0] == 0).all())
+    if nc > 8 and shapes[0][0] > 1:
+        assert bool((got[2][:, w0:2 * w0] == 7).all())
+
+
+def test_decode_levels_unaligned_view(card):
+    """Class logits that start 2 bytes into their storage: the 16-byte
+    loads' alignment does not hold, the element instantiation runs."""
+    g = torch.Generator(device=card).manual_seed(3)
+    flat = (torch.randn(2 * 6 * 6 * 80 + 1, generator=g, device=card) * 3).bfloat16()
+    box = (torch.randn(2, 6, 6, 64, generator=g, device=card) * 3).bfloat16()
+    _hold_levels([(box, flat[1:].view(2, 6, 6, 80))], (8.0,), "element")
+
+
+def test_decode_levels_nan_and_inf_logits(card):
+    """NaN is the greatest class logit and the first NaN wins, as in
+    torch.argmax; NaN and inf come out where the plain version has them."""
+    (box, cls), = _head(card, 9, 2, ((8, 8),), 80, torch.float32)
+    box[0, 0, 0, :16], box[0, 0, 0, 0] = -100.0, 100.0
+    box[0, 1, 0, 3], box[0, 1, 1, 20] = float("inf"), float("nan")
+    cls[0, 2, 0, 50], cls[0, 2, 1, [5, 60]] = float("nan"), float("nan")
+    cls[0, 2, 2, 9], cls[0, 2, 3] = float("inf"), -float("inf")
+    got = decode_v8_levels([(box, cls)], (8.0,))
+    want = decode_v8_levels_plain([(box, cls)], (8.0,))
+    torch.testing.assert_close(got[0], want[0], atol=1e-3, rtol=0, equal_nan=True)
+    torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=0, equal_nan=True)
+    assert torch.equal(got[2], want[2])
+    assert got[2][0, 16].item() == 50 and got[2][0, 17].item() == 5
+
+
+def test_decode_levels_reject_what_they_do_not_take(card):
+    (box, cls), = _head(card, 1, 1, ((4, 4),), 80, torch.bfloat16)
+    before = _cuda.LAUNCHES.snapshot()["decode_v8"]
+    with pytest.raises(ValueError):  # five levels
+        decode_v8_levels([(box, cls)] * 5, [8.0] * 5)
+    with pytest.raises(ValueError):  # a stride short
+        decode_v8_levels([(box, cls)] * 2, [8.0])
+    with pytest.raises(TypeError):
+        decode_v8_levels([(box, cls.float())], [8.0])
+    with pytest.raises(TypeError):
+        decode_v8_levels([(box.half(), cls.half())], [8.0])
+    with pytest.raises(ValueError):  # one tensor on the card, one not
+        decode_v8_levels([(box, cls.cpu())], [8.0])
+    with pytest.raises(ValueError):  # class grid differs from the box grid
+        decode_v8_levels([(box, cls[:, :2])], [8.0])
+    with pytest.raises(ValueError):  # not contiguous
+        decode_v8_levels([(box, cls[..., ::2])], [8.0])
+    assert _cuda.LAUNCHES.snapshot()["decode_v8"] == before  # nothing was launched
+
+
 @pytest.mark.parametrize("dtype,n,h,w,c0,c1,kind", [
     (torch.bfloat16, 4, 640, 640, 16, 32, "mma"),
     (torch.float32, 2, 128, 96, 16, 32, "general"),
@@ -204,9 +307,49 @@ def test_letterbox_matches_plain(card, src_hw, dst_hw, stretch, dtype):
     assert (diff.amax(-1) > 0).float().mean().item() < 0.01
 
 
+@pytest.mark.parametrize("src_hw,dst_hw,stretch,dtype,kind,dense", [
+    ((97, 211), (128, 128), False, torch.bfloat16, "element", True),   # 633-byte rows
+    ((97, 211), (128, 128), False, torch.float32, "element", True),
+    ((90, 160), (33, 50), True, torch.bfloat16, "element", True),      # 300-byte output rows
+    ((48, 40), (64, 64), True, torch.bfloat16, "element", True),       # upscale: shared taps
+    ((48, 64), (64, 64), True, torch.float32, "vec16", True),
+    ((1080, 1920), (224, 224), True, torch.float32, "vec16", False),   # taps read in place
+    ((1080, 1920), (112, 112), True, torch.float32, "vec16", False),
+    ((1080, 1920), (112, 112), True, torch.bfloat16, "vec16", False),
+    ((500, 300), (128, 128), False, torch.bfloat16, "element", True),  # pad left and right
+    ((16, 4096), (4, 2000), True, torch.float32, "vec16", True),       # two segments a row
+    ((1080, 1920), (640, 640), False, torch.float32, "vec16", True),
+])
+def test_letterbox_bit_equal_to_plain(card, src_hw, dst_hw, stretch, dtype, kind, dense):
+    g = torch.Generator(device=card).manual_seed(src_hw[1] + dst_hw[1])
+    frames = torch.randint(0, 256, (3, *src_hw, 3), generator=g, device=card,
+                           dtype=torch.uint8)
+    spec = stretch_spec(src_hw, dst_hw) if stretch else letterbox_spec(src_hw, dst_hw)
+    assert letterbox_instantiation(spec.src_w, spec.dst_w, dtype, True) == kind
+    assert letterbox_plan(spec, dtype, kind).dense == dense
+    got, want = letterbox(frames, spec, dtype), letterbox_plain(frames, spec, dtype)
+    assert got.dtype == dtype and got.is_contiguous()
+    assert torch.equal(got, want)
+
+
+def test_letterbox_unaligned_frames_bit_equal(card):
+    """Frames that start one byte into their storage take the element
+    instantiation, whatever their width."""
+    g = torch.Generator(device=card).manual_seed(5)
+    flat = torch.randint(0, 256, (2 * 64 * 128 * 3 + 1,), generator=g, device=card,
+                         dtype=torch.uint8)
+    frames = flat[1:].view(2, 64, 128, 3)
+    spec = letterbox_spec((64, 128), (64, 64))
+    assert letterbox_instantiation(128, 64, torch.bfloat16, frames.data_ptr() % 16 == 0) \
+        == "element"
+    assert torch.equal(letterbox(frames, spec), letterbox_plain(frames, spec))
+
+
 def test_letterbox_rejects_what_it_does_not_take(card):
     spec = letterbox_spec((48, 64), (32, 32))
     with pytest.raises(TypeError):
         letterbox(torch.zeros(1, 48, 64, 3, device=card), spec)
     with pytest.raises(ValueError):
         letterbox(torch.zeros(1, 48, 128, 3, dtype=torch.uint8, device=card)[:, :, ::2], spec)
+    with pytest.raises(TypeError):  # an output dtype the kernel does not write
+        letterbox(torch.zeros(1, 48, 64, 3, dtype=torch.uint8, device=card), spec, torch.float16)
