@@ -41,28 +41,46 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
 5. the YOLO device-resize step: the same engine with ``host_resize: off``
    on 32 synthetic 1280x720 frames (full frames -> B4 letterbox -> forward),
    held against ``pallas_preprocess: off``;
-6. ResNet-50 (224, 1000 classes, bucket 32, seeded weights) on 32
+6. native int8: the same YOLOv8n with ``precision: int8`` (weights
+   quantised per output channel, activation scales calibrated on the card)
+   on the 32 1080p frames: every conv calibrated; the int32 accumulators of
+   the int8 conv (im2col + ``torch._int_mm``) equal to a float64 convolution
+   of the same int8 operands at the stem (K 27 -> 32) and at a 3x3 conv of
+   64 input channels; the launches (B2 once, B1 twice, B3 never: the int8
+   stem is not fused); detections against the bf16 engine's by IoU, class
+   and score; step time, frames/s and peak memory beside the bf16 step, and
+   the int8 conv's time beside cuDNN's bf16 conv at those two shapes;
+7. YOLOv5n (640, bf16, bucket 32, seeded weights) on the 32 1080p frames:
+   B1 twice and no B2 or B3 (a v5 head, a k6 stem); bf16 model outputs
+   against fp32 within the repo's bf16 fidelity bound; step time;
+8. tiled inference: YOLOv8n, bf16, ``tiling: true`` with the whole-frame
+   pass, on 8 of the 1080p frames (64 tiles of 640x640 in two steps, then
+   the whole frames in a third): B1, B2 and B3 launched on every step;
+   fp32 detections with every kernel on against every kernel off, frame by
+   frame; tiles, steps and ms a frame;
+9. ResNet-50 (224, 1000 classes, bucket 32, seeded weights) on 32
    synthetic 1080p frames with ``host_resize: off`` (B4 stretch), bf16 and
    fp32, top-5 against ``pallas_preprocess: off``; one step with
    ``host_resize: on`` beside it;
-7. the four temporal families (CNN-LSTM and ConvGRU at 224, 3D-CNN and
-   SlowFast at 112; T = 16, 400 classes) on 4 clips of 16 synthetic 1080p
-   frames with ``host_resize: off``, top-5 against ``pallas_preprocess:
-   off``;
-8. the pipelines: ``AnalyticsPipeline`` with 32 pooled ``synthetic://``
-   1080p streams at 25 fps on YOLOv8n for about 15 s, then 8 such streams
-   on ResNet-50 with ``host_resize: off`` for about 5 s;
-9. the ``{"kernels": [...]}`` line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+10. the four temporal families (CNN-LSTM and ConvGRU at 224, 3D-CNN and
+    SlowFast at 112; T = 16, 400 classes) on 4 clips of 16 synthetic 1080p
+    frames with ``host_resize: off``, top-5 against ``pallas_preprocess:
+    off``;
+11. the pipelines: ``AnalyticsPipeline`` with 32 pooled ``synthetic://``
+    1080p streams at 25 fps on YOLOv8n for about 15 s, then 8 such streams
+    on ResNet-50 with ``host_resize: off`` for about 5 s;
+12. the ``{"kernels": [...]}`` line, the card line, and last
+    ``{"ok": true, "device": {...}}``.
 
-Every path of phases 4-8 runs with the launch counters set to 0 just
+Every path of phases 4-11 runs with the launch counters set to 0 just
 before and read just after; each fails unless the kernels it runs were
-launched (the YOLO steps: ``decode_v8`` exactly once). A kernel's
-``launches`` in the kernels line is its count on one step of the path its
-row times (the main path for B1-B3, the
-device-resize step for B4), and ``launches_by_path`` holds each path's own
-count. Any failure exits non-zero without the last line; so does a
-machine with no visible CUDA card, or a directory without the package.
+launched (the YOLO v8 steps: ``decode_v8`` exactly once a step) and, on
+the int8 and v5 paths, unless the kernels those paths skip were not. A
+kernel's ``launches`` in the kernels line is its count on one step of the
+path its row times (the main path for B1-B3, the device-resize step for
+B4), and ``launches_by_path`` holds each path's own count. Any failure
+exits non-zero without the last line; so does a machine with no visible
+CUDA card, or a directory without the package.
 """
 
 from __future__ import annotations
@@ -185,7 +203,9 @@ def check_gather(gen):
     from realtime_analytics_tpu_torch.ops.gather import row_gather, row_gather_plain
 
     rows = []
-    for m, p, k in ((8400, 4, 512), (512, 6, 300)):  # batched_nms's two calls
+    # batched_nms's two calls: the boxes of v8 (8400 anchors) and of v5
+    # (25,200: three a cell), then the survivors' rows
+    for m, p, k in ((8400, 4, 512), (25200, 4, 512), (512, 6, 300)):
         payload = torch.randn(N, m, p, generator=gen, device="cuda") * 640.0
         bits = payload.view(torch.int32).view(-1)
         special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), 1e-40, -1e-40],
@@ -600,6 +620,7 @@ def run_engine(params, frames):
     assert launches["decode_v8"] == 1, "the head must decode in one launch a step"
     b = res.boxes_xyxy
     assert b.shape == (N, 300, 4) and np.isfinite(b).all() and np.isfinite(res.scores).all()
+    summary_res = res
     assert (res.num_valid > 0).all(), "no detections on a frame at conf 0.005"
     log(f"main path num_valid per frame {res.num_valid.tolist()}")
 
@@ -644,11 +665,288 @@ def run_engine(params, frames):
                    bf16_conf_max_delta=conf_d, bf16_box_median_delta_px=box_med,
                    bf16_class_agreement=cls_agree, bf16_all_off_frames_equal=all_off,
                    fp32_score_max_delta=score32, fp32_box_max_delta_px=box32)
+    return launches, summary, summary_res
+
+
+# ---------------------------------------------------------------------------
+# phases 6-8: native int8, YOLOv5, tiled inference
+# ---------------------------------------------------------------------------
+
+
+def iou(a, b) -> float:
+    tl, br = np.maximum(a[:2], b[:2]), np.minimum(a[2:], b[2:])
+    inter = float(np.prod(np.clip(br - tl, 0, None)))
+    ua = float(np.prod(np.clip(a[2:] - a[:2], 0, None)))
+    ub = float(np.prod(np.clip(b[2:] - b[:2], 0, None)))
+    return inter / max(ua + ub - inter, 1e-9)
+
+
+def matched(got, ref, i: int, k: int, score_tol: float):
+    """How many of frame i's top-k reference detections have a counterpart
+    in ``got``: the same class, IoU > 0.6, a score within ``score_tol``."""
+    k = min(k, int(ref.num_valid[i]))
+    hits = sum(
+        any(got.class_ids[i, g] == ref.class_ids[i, r]
+            and iou(got.boxes_xyxy[i, g], ref.boxes_xyxy[i, r]) > 0.6
+            and abs(float(got.scores[i, g]) - float(ref.scores[i, r])) < score_tol
+            for g in range(int(got.num_valid[i])))
+        for r in range(k))
+    return hits, k
+
+
+def check_int8_acc(eng, frames):
+    """The int32 accumulators of the int8 conv on the card against a
+    float64 convolution of the same int8 operands, for equality: the
+    selected step's folded stem (raw pixels, K 27 padded to 32) and the
+    first 3x3 conv with at least 64 input channels, on the activations the
+    step gives them. Also the int8 conv's time beside cuDNN's bf16 conv at
+    each shape."""
+    import torch.nn.functional as F
+
+    from realtime_analytics_tpu_torch.models.layers import ConvAct
+    from realtime_analytics_tpu_torch.ops.int8 import conv2d_int8, conv2d_int8_acc, quantize_act
+    from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
+
+    spec = letterbox_spec(frames.shape[1:3], eng.input_hw)
+    sel, _ = eng.host_prepare(frames, frames.shape[1:3])
+    name, conv = next((n, m) for n, m in eng.model.named_modules()
+                      if isinstance(m, ConvAct) and m.shape[1] >= 64 and m.shape[2] == 3)
+    seen = {}
+    hook = conv.register_forward_pre_hook(lambda _m, args: seen.setdefault("x", args[0]))
+    with torch.inference_mode():
+        x0 = eng._pad_cast(torch.from_numpy(sel).to(eng.device), spec).permute(0, 3, 1, 2)
+        eng._forward_selected(x0.permute(0, 2, 3, 1))
+    hook.remove()
+    stem = eng.model.layers["0"]
+    rows = {}
+    for label, mod, x, q in (("stem", stem, x0, eng._w0_folded),
+                             (name, conv, seen["x"], conv.quant())):
+        cout, k = mod.shape[0], mod.shape[-1]
+        with torch.inference_mode():
+            acc, scale = conv2d_int8_acc(x, q, cout, k, stride=mod.stride, padding=mod.padding)
+            xq = quantize_act(x.permute(0, 2, 3, 1).float(), scale)
+            pad = k // 2 if mod.padding is None else mod.padding
+            ref = F.conv2d(xq.permute(0, 3, 1, 2).double(),
+                           mod.w_q.flip(1).double() if mod is stem else mod.w_q.double(),
+                           stride=mod.stride, padding=pad)
+            torch.cuda.synchronize()
+            equal = torch.equal(acc.double(), ref.permute(0, 2, 3, 1))
+            log(f"int8 conv {label}: x {list(x.shape)} K {k * k * mod.shape[1]} -> "
+                f"{q.w_pack.shape[1]}, int32 accumulators equal to the float64 conv: {equal}")
+            assert equal, f"int8 conv {label}: accumulators differ"
+            xb, wb, bb = x.to(torch.bfloat16), mod.plain_weight(torch.bfloat16), \
+                mod.bias.to(torch.bfloat16)
+            a = torch.zeros(acc.shape[0] * acc.shape[1] * acc.shape[2], q.w_pack.shape[1],
+                            dtype=torch.int8, device=x.device)  # the product's shape alone
+            rows[label] = dict(
+                x=list(x.shape), k=k, cout=cout, k_padded=q.w_pack.shape[1], exact=equal,
+                int8_ms=cuda_ms(lambda: conv2d_int8(x, q, mod.bias, cout, k, stride=mod.stride,
+                                                    padding=mod.padding), iters=10),
+                int_mm_ms=cuda_ms(lambda: torch._int_mm(a, q.w_pack.t()), iters=10),
+                bf16_cudnn_ms=cuda_ms(lambda: F.conv2d(xb, wb, bb, stride=mod.stride,
+                                                       padding=pad), iters=10))
+            del a
+        del acc, ref, xq
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_int8(params, frames, bf16_res, bf16_summary):
+    """YOLOv8n with ``precision: int8`` on the main path's frames: the
+    engine quantises the weights and calibrates on the card; held against
+    the bf16 engine's detections (the JAX package's int8 gate,
+    tests/test_int8.py:85)."""
+    from realtime_analytics_tpu_torch.engine.detector import TorchYoloEngine
+    from realtime_analytics_tpu_torch.models.layers import ConvAct
+    from realtime_analytics_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    eng = TorchYoloEngine(detector_config(precision="int8"), params=params)
+    build_s = time.perf_counter() - t0
+    convs = [(n, m) for n, m in eng.model.named_modules() if isinstance(m, ConvAct)]
+    missing = [n for n, m in convs if m.a_scale is None]
+    assert not missing, f"int8: convs without a calibrated a_scale: {missing}"
+    assert all(m.w_q is not None and m.weight is None for _, m in convs)
+    acc = check_int8_acc(eng, frames)
+    eng.predict_arrays(frames)
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.reset()
+    res = eng.predict_arrays(frames)
+    launches = _cuda.LAUNCHES.snapshot()
+    log(f"int8 path launches {json.dumps(launches)}")
+    assert (launches["decode_v8"], launches["row_gather"], launches["fused_stem"]) == (1, 2, 0), \
+        "int8 step: B2 once, B1 twice, B3 never"
+    assert np.isfinite(res.boxes_xyxy).all() and (res.num_valid > 0).all()
+    shares = []
+    for i in range(N):
+        hits, k = matched(res, bf16_res, i, k=8, score_tol=0.1)
+        n_ref, n_got = int(bf16_res.num_valid[i]), int(res.num_valid[i])
+        shares.append(hits / max(k, 1))
+        assert k > 0 and hits >= max(1, int(0.7 * k)), f"int8 frame {i}: {hits}/{k} matched"
+        assert abs(n_ref - n_got) <= max(3, n_ref // 2), f"int8 frame {i}: {n_got} vs {n_ref}"
+    log(f"int8 detections against bf16: top-8 matched (same class, IoU > 0.6, |score| < "
+        f"0.1) on {sum(shares) / N:.3f} of slots, least frame {min(shares):.3f} (>= 0.7)")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, step_min = timed_ms(lambda: eng.predict_arrays(frames), 10)
+    summary = dict(step_ms_median=step_ms, step_ms_min=step_min,
+                   frames_per_s=N / step_ms * 1e3,
+                   max_memory_allocated_mib=torch.cuda.max_memory_allocated() / 2**20,
+                   bf16_step_ms_median=bf16_summary["step_ms_median"],
+                   bf16_frames_per_s=bf16_summary["frames_per_s"],
+                   bf16_max_memory_allocated_mib=bf16_summary["max_memory_allocated_mib"],
+                   engine_build_s=build_s, calibrated_convs=len(convs),
+                   top8_matched_share_mean=sum(shares) / N, top8_matched_share_min=min(shares),
+                   convs=acc)
+    del eng
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def run_yolov5(frames):
+    """YOLOv5n, bf16, on the main path's frames (selected step): B1 only;
+    bf16 model outputs against fp32 within the repo's bf16 fidelity bound
+    (tests/test_bf16_fidelity.py: score delta < 0.02, median box drift < 1
+    px); fp32 detections with B1 on against off on the same engine."""
+    from realtime_analytics_tpu_torch.engine.detector import TorchYoloEngine
+    from realtime_analytics_tpu_torch.models.weights import synthetic_params
+    from realtime_analytics_tpu_torch.models.yolo import build_yolo
+    from realtime_analytics_tpu_torch.ops import _cuda
+
+    params = synthetic_params(build_yolo("yolov5", "n", 80), seed=0)
+    eng = TorchYoloEngine(detector_config(model_type="yolov5"), params=params)
+    assert eng.model.version == 5
+    eng.predict_arrays(frames)
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.reset()
+    res = eng.predict_arrays(frames)
+    launches = _cuda.LAUNCHES.snapshot()
+    log(f"yolov5 path launches {json.dumps(launches)}")
+    assert (launches["row_gather"], launches["fused_stem"], launches["decode_v8"]) == (2, 0, 0), \
+        "v5 step: B1 twice, no B2 (a v5 head) and no B3 (a k6 stem)"
+    assert res.boxes_xyxy.shape == (N, 300, 4) and np.isfinite(res.boxes_xyxy).all()
+    assert (res.num_valid > 0).all()
+    fp32 = TorchYoloEngine(detector_config(model_type="yolov5", precision="fp32"),
+                           params=params)
+    got, want = model_outputs(eng, frames), model_outputs(fp32, frames)
+    conf_d = (got["conf"] - want["conf"]).abs().max().item()
+    box_med = (got["boxes_xyxy"] - want["boxes_xyxy"]).abs().median().item()
+    cls_agree = (got["cls"] == want["cls"]).float().mean().item()
+    log(f"yolov5 bf16 against fp32 model outputs: max |conf| delta {conf_d:.4g} (< 0.02), "
+        f"median |box| delta {box_med:.4g} px (< 1), class agreement {cls_agree:.4f}")
+    assert conf_d < 0.02 and box_med < 1.0, "yolov5 bf16 outputs drift from fp32"
+    # B1 on the v5 boxes [N, 25200, 4]: the same engine and model outputs,
+    # NMS gathering through the kernel and then through torch
+    on = fp32.predict_arrays(frames)
+    fp32._nms_gather = "torch"
+    off = fp32.predict_arrays(frames)
+    assert (on.num_valid > 0).all()
+    _, score_g, box_g = hold("yolov5 fp32 detections, B1 on vs off", on, off,
+                             score_tol=1e-5, box_tol=1e-3)
+    del fp32, got, want
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, step_min = timed_ms(lambda: eng.predict_arrays(frames), 10)
+    summary = dict(step_ms_median=step_ms, step_ms_min=step_min,
+                   frames_per_s=N / step_ms * 1e3,
+                   max_memory_allocated_mib=torch.cuda.max_memory_allocated() / 2**20,
+                   bf16_conf_max_delta_vs_fp32=conf_d, bf16_box_median_delta_vs_fp32_px=box_med,
+                   bf16_class_agreement_vs_fp32=cls_agree,
+                   fp32_b1_on_off_score_max_delta=score_g,
+                   fp32_b1_on_off_box_max_delta_px=box_g,
+                   num_valid_mean=float(res.num_valid.mean()))
+    del eng
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def run_tiled(params, frames):
+    """Tiled inference on 1080p frames: 8 tiles of 640x640 a frame in
+    steps of the bucket (32 tiles), then the whole-frame pass; every step
+    must launch B1 twice, B2 and B3 once. fp32 detections, every kernel on
+    against every kernel off, frame by frame."""
+    from realtime_analytics_tpu_torch.config import StreamConfig
+    from realtime_analytics_tpu_torch.engine.detector import TorchYoloEngine
+    from realtime_analytics_tpu_torch.ops import _cuda
+    from realtime_analytics_tpu_torch.types import FramePacket
+
+    packets = [FramePacket(StreamConfig(name=f"cam-{i}", url="synthetic://"), f, i, 0.0)
+               for i, f in enumerate(frames)]
+
+    def engine(**over):
+        eng = TorchYoloEngine(detector_config(tiling=True, tiling_full_frame=True, **over),
+                              params=params)
+        steps = []
+        run = eng._run_bucket
+
+        def counted(bucket, prepared, src_hw, selected):
+            before = _cuda.LAUNCHES.snapshot()
+            out = run(bucket, prepared, src_hw, selected)
+            after = _cuda.LAUNCHES.snapshot()
+            steps.append((tuple(src_hw), len(prepared), {k: after[k] - before[k] for k in after}))
+            return out
+
+        eng._run_bucket = counted
+        return eng, steps
+
+    eng, steps = engine()
+    eng.predict_packets(packets)
+    torch.cuda.synchronize()
+    steps.clear()
+    _cuda.LAUNCHES.reset()
+    dets = eng.predict_packets(packets)
+    launches = _cuda.LAUNCHES.snapshot()
+    log(f"tiled path launches {json.dumps(launches)}; steps "
+        f"{json.dumps([[list(hw), n, c] for hw, n, c in steps])}")
+    tile_steps = [c for hw, _, c in steps if hw == (HW, HW)]
+    n_tiles = sum(n for hw, n, _ in steps if hw == (HW, HW))
+    assert n_tiles == 8 * len(frames) and len(tile_steps) == -(-n_tiles // N)
+    assert len(steps) == len(tile_steps) + 1, "the whole-frame pass is one more step"
+    for c in (c for _, _, c in steps):
+        assert (c["fused_stem"], c["decode_v8"], c["row_gather"]) == (1, 1, 2), \
+            f"a tiled step did not launch B1-B3: {c}"
+    assert all(isinstance(d, list) for d in dets) and sum(len(d) for d in dets) > 0
+
+    off = dict(pallas_gather="off", pallas_decode="off", pallas_stem="off")
+    on32, _ = engine(precision="fp32", confidence_threshold=0.25)
+    off32, _ = engine(precision="fp32", confidence_threshold=0.25, **off)
+    a, b = on32.predict_packets(packets), off32.predict_packets(packets)
+    same, score_d, box_d = 0, 0.0, 0.0
+    for da, db in zip(a, b):
+        # the merge orders by score, so detections from two tiles whose
+        # scores tie to fp32 precision may swap slots: pair each with the
+        # nearest box of its class on the other side
+        if len(da) != len(db) or sorted(d.class_id for d in da) != sorted(
+                d.class_id for d in db):
+            continue
+        same += 1
+        free = list(db)
+        for x in da:
+            y = min((d for d in free if d.class_id == x.class_id),
+                    key=lambda d: np.abs(np.subtract(x.bbox_xyxy, d.bbox_xyxy)).max())
+            free.remove(y)
+            score_d = max(score_d, abs(x.confidence - y.confidence))
+            box_d = max(box_d, float(np.abs(np.subtract(x.bbox_xyxy, y.bbox_xyxy)).max()))
+    log(f"tiled fp32 detections, every kernel on vs off: {same}/{len(frames)} frames with "
+        f"equal counts and classes, each detection paired with its nearest box of the same "
+        f"class: max |score| delta {score_d:.3g} (tol 1e-4), max |box| delta {box_d:.3g} px "
+        f"(tol 1e-2)")
+    assert same == len(frames) and score_d <= 1e-4 and box_d <= 1e-2, "tiled fp32 disagree"
+    del on32, off32
+    n_steps = len(steps)
+    torch.cuda.reset_peak_memory_stats()
+    ms, ms_min = timed_ms(lambda: eng.predict_packets(packets), 5)
+    summary = dict(frames=len(frames), tiles=n_tiles, steps=n_steps,
+                   tile_steps=len(tile_steps), detections=sum(len(d) for d in dets),
+                   ms_median=ms, ms_min=ms_min, ms_per_frame=ms / len(frames),
+                   max_memory_allocated_mib=torch.cuda.max_memory_allocated() / 2**20,
+                   fp32_frames_equal=same, fp32_score_max_delta=score_d,
+                   fp32_box_max_delta_px=box_d)
+    del eng
+    torch.cuda.empty_cache()
     return launches, summary
 
 
 # ---------------------------------------------------------------------------
-# phases 5-7: the paths that run B4
+# phases 9-10: the classifier and temporal paths that run B4
 # ---------------------------------------------------------------------------
 
 
@@ -852,7 +1150,7 @@ def run_temporal(frames):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the pipelines
+# phase 11: the pipelines
 # ---------------------------------------------------------------------------
 
 
@@ -965,31 +1263,53 @@ def main() -> int:
                        for i in range(N)])
     frames720 = np.stack([SyntheticSource(width=1280, height=720, boxes=4, seed=i).read()[1]
                           for i in range(N)])
-    paths = {}
-    paths["main"], engine = run_engine(params, frames)
+    paths, walls, t_lap = {}, {}, time.perf_counter()
+
+    def lap(name):  # wall seconds of the phase that just ended
+        nonlocal t_lap
+        now = time.perf_counter()
+        walls[name], t_lap = now - t_lap, now
+
+    paths["main"], engine, bf16_res = run_engine(params, frames)
     log("engine " + json.dumps(dict(engine, card=card)))
+    lap("main")
     paths["device_resize"], resize = run_device_resize(params, frames720)
     log("device_resize " + json.dumps(dict(resize, card=card)))
+    lap("device_resize")
+    paths["int8"], int8 = run_int8(params, frames, bf16_res, engine)
+    log("int8 " + json.dumps(dict(int8, card=card)))
+    lap("int8")
+    paths["yolov5"], v5 = run_yolov5(frames)
+    log("yolov5 " + json.dumps(dict(v5, card=card)))
+    lap("yolov5")
+    paths["tiled"], tiled = run_tiled(params, frames[:8])
+    log("tiled " + json.dumps(dict(tiled, card=card)))
+    lap("tiled")
     resnet_params = resnet_synthetic_params(build_resnet("resnet50", 1000), seed=0)
     resnet_paths, resnet = run_resnet(resnet_params, frames)
     paths.update(resnet_paths)
     log("resnet50 " + json.dumps(dict(resnet, card=card)))
+    lap("resnet")
     temporal_paths, temporal = run_temporal(frames)
     paths.update(temporal_paths)
     log("temporal " + json.dumps(dict(temporal, card=card)))
+    lap("temporal")
     torch.cuda.empty_cache()
 
     paths["pipeline"], pipe = run_pipeline(detector_config(
         model_path=saved_tree("yolov8n_seeded.npz", params), confidence_threshold=0.25,
         batch_buckets=None, warmup=True, warmup_source_hw=[1080, 1920]), N, 15.0)
     log("pipeline " + json.dumps(dict(pipe, card=card)))
+    lap("pipeline")
     paths["resnet_pipeline"], rpipe = run_pipeline(resnet_config(
         model_path=saved_tree("resnet50_seeded.npz", resnet_params), max_batch_size=8,
         batch_buckets=[8], warmup=True, warmup_source_hw=[1080, 1920]), 8, 5.0)
     require_launched("ResNet-50 pipeline", paths["resnet_pipeline"], ("letterbox",))
     log("resnet50_pipeline " + json.dumps(dict(rpipe, card=card)))
+    lap("resnet_pipeline")
 
     log("launches by path " + json.dumps(paths))
+    log("phase wall s " + json.dumps(dict(walls, total_since_start=time.perf_counter() - t0)))
     # launches: one step of the path whose shapes the row times (the main
     # path for B1-B3, the device-resize step for B4); launches_by_path: each
     # path's own count, read just after its own reset

@@ -13,6 +13,11 @@ the same as the JAX package's:
 and, when no host pick or host resize applies, the device-resize step:
 full frames -> letterbox on the card (kernel B4) -> forward -> NMS.
 
+The YOLO engine serves YOLOv5 and YOLOv8, ``precision: int8`` (int8
+weights and activations, static scales calibrated at start-up on the
+engine's device) and ``tiling: true`` (SAHI-style tiles at native
+resolution through the same selected step, merged on the host).
+
 PyTorch runs eagerly, so a "step" is a closure over the static letterbox
 geometry, not a compiled program. Batches are still padded to the
 configured buckets, so every call sees one of a few fixed shapes.
@@ -46,17 +51,27 @@ import torch.nn.functional as F
 from ..config import DetectorConfig, TEMPORAL_MODEL_TYPES
 from ..models.resnet import build_resnet, normalize_imagenet, variant_from_model_path
 from ..models.weights import (
+    calibrate_int8_activations,
     load_resnet_checkpoint,
     load_yolo_checkpoint,
     params_from_jax,
+    params_to_tree,
+    quantize_params_int8,
     resnet_params_from_jax,
     resnet_synthetic_params,
 )
 from ..models.yolo import build_yolo, size_from_model_path
 from ..ops.boxes import unletterbox_boxes
+from ..ops.int8 import QuantConv, pack_int8_weight
 from ..ops.letterbox import letterbox, stretch_resize
 from ..ops.nms import batched_nms
-from ..ops.preprocess import integer_axis_reduction, letterbox_spec, preprocess_batch
+from ..ops.preprocess import (
+    integer_axis_reduction,
+    letterbox_numpy,
+    letterbox_spec,
+    preprocess_batch,
+)
+from ..ops.tiling import crop_tile, merge_frame, tile_grid
 from ..types import BatchResult, Detection, FramePacket
 
 logger = logging.getLogger(__name__)
@@ -99,6 +114,25 @@ def pick_device(config: DetectorConfig) -> torch.device:
     return torch.device("cuda", index)
 
 
+def _calibration_frames(input_hw: Tuple[int, int], n: int = 4) -> List[np.ndarray]:
+    """Model-ready int8 calibration inputs, as the JAX package's: letterboxed
+    frames of the synthetic video source (moving boxes over a structured
+    background) at 1080p (seed 0) and 854x480 (seed 1), each [1, H, W, 3]
+    fp32 RGB in [0, 1] (``letterbox_numpy``)."""
+    from ..ingest.synthetic import SyntheticSource
+
+    out: List[np.ndarray] = []
+    for seed, (h, w) in enumerate(((1080, 1920), (480, 854))):
+        src = SyntheticSource(width=w, height=h, boxes=5, seed=seed)
+        for _ in range(max(1, n // 2)):
+            ok, frame = src.read()
+            if not ok:
+                break
+            tensor, _meta = letterbox_numpy(frame, input_hw)  # [1, 3, H, W] RGB
+            out.append(tensor.transpose(0, 2, 3, 1).astype(np.float32))
+    return out
+
+
 def _bucket_for(buckets: Sequence[int], n: int) -> int:
     for b in buckets:
         if n <= b:
@@ -117,17 +151,13 @@ def _cheapest_bucket(buckets: Sequence[int], n: int, costs: Dict[int, float]) ->
 
 
 class TorchYoloEngine(BaseDetector):
-    """YOLOv8 engine with batched inference on one card (or the CPU)."""
+    """YOLOv5/v8 engine with batched inference on one card (or the CPU)."""
 
     def __init__(self, config: DetectorConfig, params: Optional[Dict] = None):
         config.validate()
         self.config = config
-        if config.precision == "int8":
-            raise NotImplementedError("precision: int8" + _NOT_PORTED)
         if config.mesh_shape:
             raise NotImplementedError("detector.mesh_shape (multi-device)" + _NOT_PORTED)
-        if config.tiling:
-            raise NotImplementedError("detector.tiling" + _NOT_PORTED)
         self.device = pick_device(config)
         fp32_means_fp32(self.device)
         self.model = build_yolo(
@@ -145,10 +175,13 @@ class TorchYoloEngine(BaseDetector):
                 "is provided.", config.model_path,
             )
             self.model.init_params(torch.Generator().manual_seed(0))
+        if config.precision == "int8":
+            self._init_int8(params)
         else:
-            params_from_jax(self.model, params)
-        self.model.to(device=self.device, dtype=self.compute_dtype,
-                      memory_format=torch.channels_last).eval()
+            if params is not None:
+                params_from_jax(self.model, params)
+            self.model.to(device=self.device, dtype=self.compute_dtype,
+                          memory_format=torch.channels_last).eval()
         if config.s2d_backbone != "off":
             logger.info(
                 "detector.s2d_backbone=%s is a TPU layout tactic of the JAX "
@@ -158,16 +191,11 @@ class TorchYoloEngine(BaseDetector):
         self.model.pallas_decode = "off" if config.pallas_decode == "off" else "on"
         self.model.pallas_stem = "off" if config.pallas_stem == "off" else "on"
         self._nms_gather = "torch" if config.pallas_gather == "off" else "kernel"
-        # BGR->RGB and /255 are linear in the input, so the selected step
-        # folds them into the stem conv (input-channel flip + scale). Done
-        # once here, in the compute dtype, in the JAX order: the weights
-        # were cast above, then flip and scale.
-        w0 = self.model.layers["0"].weight
-        self._w0_folded = torch.flip(w0, dims=[1]) * torch.tensor(
-            1.0 / 255.0, dtype=w0.dtype, device=w0.device
-        )
-        self._stem_folded = self.model.stem_weights(self.compute_dtype, self._w0_folded)
-        self._stem_plain = self.model.stem_weights(self.compute_dtype)
+        self._w0_folded = self._fold_stem()
+        self._stem_folded = self._stem_plain = None
+        if self.model.stem_nodes_ok():
+            self._stem_folded = self.model.stem_weights(self.compute_dtype, self._w0_folded)
+            self._stem_plain = self.model.stem_weights(self.compute_dtype)
         self._class_mask = None
         if config.classes:
             mask = torch.zeros(config.num_classes, dtype=torch.bool)
@@ -176,6 +204,37 @@ class TorchYoloEngine(BaseDetector):
         self._bucket_cost_ms: Dict[Tuple[int, int], Dict[int, float]] = {}
         self.class_agnostic_nms = True  # reference NMS is class-agnostic
         self.last_infer_ms: float = 0.0
+
+    def _init_int8(self, params: Optional[Dict]) -> None:
+        """Native int8, as the JAX engine's int8 branch: quantise the float
+        tree, load it (its convs then run int8: ``act_int8``) and bake
+        static activation scales from ``_calibration_frames`` in one fp32
+        pass on the engine's device. No float parameter is cast to the compute dtype (biases,
+        scales and v5 anchors stay fp32); serving still feeds bf16 pixels.
+        The JAX engine serves with dynamic scales when calibration fails;
+        here a failure raises."""
+        tree = params if params is not None else params_to_tree(self.model)
+        params_from_jax(self.model, quantize_params_int8(tree))
+        self.model.to(device=self.device, memory_format=torch.channels_last).eval()
+        baked = calibrate_int8_activations(
+            self.model, _calibration_frames(self.input_hw), self.device)
+        logger.info("int8 mode: %d static calibrated activation scales", baked)
+
+    def _fold_stem(self):
+        """BGR->RGB and /255 are linear in the input, so the selected step
+        folds them into the stem conv (input-channel flip + scale), once, in
+        the JAX order. A float stem: the weight in the compute dtype,
+        flipped, times 1/255. An int8 stem: ``w_q``'s input channels
+        flipped, ``w_scale / 255``, and ``a_scale * 255`` (the scale was
+        calibrated on [0, 1] inputs and this step feeds raw pixels)."""
+        l0 = self.model.layers["0"]
+        if l0.w_q is None:
+            w0 = l0.weight
+            return torch.flip(w0, dims=[1]) * torch.tensor(
+                1.0 / 255.0, dtype=w0.dtype, device=w0.device)
+        return QuantConv(pack_int8_weight(torch.flip(l0.w_q, dims=[1])),
+                         l0.w_scale * (1.0 / 255.0),
+                         None if l0.a_scale is None else l0.a_scale * 255.0)
 
     # -- host side ------------------------------------------------------
 
@@ -340,6 +399,9 @@ class TorchYoloEngine(BaseDetector):
                 "warmup: bucket B=%d src=%s (host_select=%s) step=%.1fms",
                 b0, src_hw, selected, cost,
             )
+        if self._tiling_active(src_hw) and tuple(src_hw) != tuple(self.input_hw):
+            # tiled serving runs the input-sized step on the tile crops
+            self.warmup(self.input_hw, buckets)
 
     # -- prediction -------------------------------------------------------
 
@@ -398,14 +460,69 @@ class TorchYoloEngine(BaseDetector):
                 return self._predict_prepared(frames, shape, True)
         return self._predict_prepared(np.stack(frames_list), shape, False)
 
+    def _tiling_active(self, shape: Tuple[int, int]) -> bool:
+        return bool(self.config.tiling) and (
+            shape[0] > self.input_hw[0] or shape[1] > self.input_hw[1])
+
+    def _predict_tiled_group(self, frames_list: Sequence[np.ndarray],
+                             shape: Tuple[int, int]) -> BatchResult:
+        """SAHI-style sliced inference (``ops/tiling.py``), as the JAX
+        engine's: input-sized tile crops (a memcpy, detection at native
+        resolution) ride the selected step (the identity pixel pick) in
+        chunks of at most the largest bucket; the optional whole-frame pass
+        merges back in, so that objects larger than a tile are seen whole."""
+        th, tw = self.input_hw
+        grid = tile_grid(shape, self.input_hw, self.config.tiling_overlap)
+        n_tiles, nf = len(grid), len(frames_list)
+        spec = letterbox_spec((th, tw), self.input_hw)
+        geom = self._select_geometry(spec) if self.config.host_select != "off" else None
+        selected = geom == (1, 0, 1, 0)
+        # one cap-sized buffer bounds the host's transient to one chunk
+        cap = max(self.config.resolved_buckets)
+        tiles = np.empty((min(cap, nf * n_tiles), th, tw, 3), np.uint8)
+        parts, filled = [], 0
+        for f in frames_list:
+            for y0, x0 in grid:
+                crop_tile(f, y0, x0, (th, tw), out=tiles[filled])
+                filled += 1
+                if filled == tiles.shape[0]:
+                    parts.append(self._predict_prepared(tiles[:filled], (th, tw), selected))
+                    filled = 0
+        if filled:
+            parts.append(self._predict_prepared(tiles[:filled], (th, tw), selected))
+        tb, ts, tc, tn = (np.concatenate([getattr(p, f) for p in parts]) for f in
+                          ("boxes_xyxy", "scores", "class_ids", "num_valid"))
+        full = (self._predict_group(frames_list, shape)
+                if self.config.tiling_full_frame else None)
+        md = self.config.max_detections
+        ob = np.zeros((nf, md, 4), np.float32)
+        osc = np.zeros((nf, md), np.float32)
+        oc = np.zeros((nf, md), np.int32)
+        on = np.zeros((nf,), np.int32)
+        for j in range(nf):
+            per_tile = [(tb[j * n_tiles + t], ts[j * n_tiles + t], tc[j * n_tiles + t],
+                         int(tn[j * n_tiles + t])) for t in range(n_tiles)]
+            if full is not None:  # past len(grid): already in frame coordinates
+                per_tile.append((full.boxes_xyxy[j], full.scores[j], full.class_ids[j],
+                                 int(full.num_valid[j])))
+            ob[j], osc[j], oc[j], on[j] = merge_frame(
+                per_tile, grid, shape, self.config.iou_threshold, md,
+                self.class_agnostic_nms)
+        return BatchResult(boxes_xyxy=ob, scores=osc, class_ids=oc, num_valid=on)
+
     def predict_packets(self, packets: Sequence[FramePacket]) -> List[List[Detection]]:
-        """Batch-predict frame packets; groups by source resolution."""
+        """Batch-predict frame packets; groups by source resolution, and
+        tiles a group larger than the input when ``tiling`` is on."""
         by_shape: Dict[Tuple[int, int], List[int]] = {}
         for i, p in enumerate(packets):
             by_shape.setdefault(tuple(p.frame.shape[:2]), []).append(i)
         results: List[List[Detection]] = [[] for _ in packets]
         for shape, idxs in by_shape.items():
-            br = self._predict_group([packets[i].frame for i in idxs], shape)
+            frames_list = [packets[i].frame for i in idxs]
+            if self._tiling_active(shape):
+                br = self._predict_tiled_group(frames_list, shape)
+            else:
+                br = self._predict_group(frames_list, shape)
             dets = br.to_detections(
                 [packets[i].stream.name for i in idxs],
                 [packets[i].frame_id for i in idxs],

@@ -8,16 +8,26 @@ inference time: the checkpoint loader folds it into conv weight and bias.
 Numerics: a bf16 input gives a bf16 output (cuDNN accumulates in fp32), as
 the JAX package's convs emit their input dtype; fp32 stays fp32 (the engine
 turns TF32 off, so an fp32 conv on the card is true fp32).
+
+int8: a ``ConvAct`` that was loaded from a quantised tree node
+``{"w_q", "w_scale", "b"[, "a_scale"]}`` (``weights.quantize_params_int8``)
+holds int8 weights instead of float ones and runs the full int8 conv
+(``ops/int8.py``: int8 activations and weights, an int32 product,
+dequantised in fp32), the JAX package's ``conv_act(act_int8=True)``.
+``ConvAct.plain_weight`` dequantises the weights in bf16 (the JAX
+package's ``get_weight``) for the v5 head, which stays weight-only.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.int8 import QuantConv, conv2d_int8, pack_int8_weight
 
 
 def conv2d(
@@ -39,6 +49,15 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
 
 
+def silu_xla(x: torch.Tensor) -> torch.Tensor:
+    """SiLU as XLA expands the JAX package's ``x * sigmoid(x)``: ``x * (1 /
+    (1 + exp(-x)))``, each operation rounded to ``x``'s dtype. The int8
+    path uses it: the next conv rounds these values to int8 levels, where
+    ``F.silu``'s single rounding (a third of bf16 values differ by one
+    last bit) would flip levels that the JAX package keeps."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def conv_act(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
              stride: int = 1, padding: Optional[int] = None,
              act: bool = True) -> torch.Tensor:
@@ -50,27 +69,79 @@ def conv_act(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
 class ConvAct(nn.Module):
     """Conv (OIHW weight) + folded-BN bias + optional SiLU (YOLO "Conv";
     ``act=False`` is a plain conv). JAX params counterpart:
-    {"w": HWIO, "b": [cout]}."""
+    {"w": HWIO, "b": [cout]}, or the int8 form {"w_q": HWIO int8,
+    "w_scale": [cout], "b": [cout], "a_scale": []} (the module then holds
+    ``w_q`` OIHW, ``w_scale``, ``a_scale`` and the packed ``w_pack`` as
+    buffers, and no float weight)."""
 
     def __init__(self, cin: int, cout: int, k: int, s: int = 1,
                  p: Optional[int] = None, act: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin, k, k), requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
+        self.register_buffer("w_q", None)
+        self.register_buffer("w_scale", None)
+        self.register_buffer("a_scale", None)
+        self.register_buffer("w_pack", None, persistent=False)
+        self.shape = (cout, cin, k, k)
         self.stride, self.padding, self.act = s, p, act
 
-    def forward(self, x: torch.Tensor, weight: Optional[torch.Tensor] = None):
-        w = self.weight if weight is None else weight
-        return conv_act(x, w, self.bias, stride=self.stride,
-                        padding=self.padding, act=self.act)
+    def plain_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """The float weight in ``dtype``: the stored one, or the int8 one
+        dequantised as the JAX package's ``get_weight``: ``w_q * w_scale``
+        formed in bf16, then cast to ``dtype``."""
+        if self.w_q is None:
+            return self.weight.to(dtype)
+        w = self.w_q.to(torch.bfloat16) * self.w_scale.to(torch.bfloat16)[:, None, None, None]
+        return w.to(dtype)
+
+    def quant(self) -> QuantConv:
+        return QuantConv(self.w_pack, self.w_scale, self.a_scale)
+
+    def forward(self, x: torch.Tensor,
+                weight: Union[torch.Tensor, QuantConv, None] = None) -> torch.Tensor:
+        """``weight`` overrides the stored weight: a float tensor for a
+        float conv, a ``QuantConv`` for an int8 one."""
+        if self.w_q is not None:
+            y = conv2d_int8(x, self.quant() if weight is None else weight, self.bias,
+                            self.shape[0], self.shape[-1], stride=self.stride,
+                            padding=self.padding)
+            return silu_xla(y) if self.act else y
+        y = conv2d(x, self.weight if weight is None else weight, self.bias,
+                   stride=self.stride, padding=self.padding)
+        return silu(y) if self.act else y
 
     def load_tree(self, node: Mapping, path: str) -> None:
-        load_param(self.weight, np.asarray(node["w"], np.float32).transpose(3, 2, 0, 1), path)
+        if "w_q" not in node:
+            if self.w_q is not None:
+                raise ValueError(f"{path}: the module holds int8 weights; load float "
+                                 "weights into a new model")
+            load_param(self.weight, np.asarray(node["w"], np.float32).transpose(3, 2, 0, 1),
+                       path)
+            load_param(self.bias, node["b"], path)
+            return
+        w_q = np.asarray(node["w_q"])
+        if w_q.dtype != np.int8 or w_q.transpose(3, 2, 0, 1).shape != self.shape:
+            raise ValueError(f"{path}: w_q {w_q.dtype} {w_q.shape} does not fit the "
+                             f"module's {self.shape}")
+        dev = self.bias.device
+        self.weight = None
+        self.w_q = torch.from_numpy(w_q.transpose(3, 2, 0, 1).copy()).to(dev)
+        self.w_scale = torch.from_numpy(np.array(node["w_scale"], np.float32)).to(dev)
+        self.a_scale = (torch.tensor(np.float32(node["a_scale"]), device=dev)
+                        if "a_scale" in node else None)
+        self.w_pack = pack_int8_weight(self.w_q)
         load_param(self.bias, node["b"], path)
 
     def to_tree(self) -> Dict[str, np.ndarray]:
-        return {"w": to_numpy(self.weight).transpose(2, 3, 1, 0).copy(),
-                "b": to_numpy(self.bias)}
+        if self.w_q is None:
+            return {"w": to_numpy(self.weight).transpose(2, 3, 1, 0).copy(),
+                    "b": to_numpy(self.bias)}
+        tree = {"w_q": self.w_q.cpu().numpy().transpose(2, 3, 1, 0).copy(),
+                "w_scale": to_numpy(self.w_scale), "b": to_numpy(self.bias)}
+        if self.a_scale is not None:
+            tree["a_scale"] = to_numpy(self.a_scale)
+        return tree
 
 
 class Dense(nn.Module):

@@ -16,6 +16,11 @@ The interchange format is the JAX package's params tree as numpy arrays:
         w' = w * gamma / sqrt(var + eps)        (per output channel)
         b' = beta - gamma * mean / sqrt(var + eps)
 
+``quantize_params_int8`` and ``calibrate_int8_activations`` port the JAX
+package's native int8 (``realtime_analytics_tpu/models/weights.py:375-450``):
+per-output-channel symmetric int8 weights in the tree, then static
+activation scales baked by one eager pass of the module.
+
 ``load_yolo_checkpoint`` reads ``.pt``/``.pth`` (raw state dict or an
 Ultralytics checkpoint dict), a flat ``.npz`` with the same key names, or
 a native-pytree ``.npz``; a weights-``.onnx`` raises NotImplementedError
@@ -39,8 +44,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from .layers import ConvAct
 from .resnet import ResNetModel
-from .yolo import YoloModel
+from .yolo import STRIDES, V5_ANCHORS, YoloModel
 
 logger = logging.getLogger(__name__)
 
@@ -106,7 +112,7 @@ def synthetic_params(model: YoloModel, seed: int = 0) -> Dict:
     scripts/gen_golden_fixture.py::synthetic_weights, so activations survive
     every layer and detections depend on the input (a random init with
     class biases at log(0.01/0.99) keeps every score near 0.01). The head's
-    plain output convs carry no BatchNorm."""
+    plain output convs carry no BatchNorm; v5 anchors keep their defaults."""
     rng = np.random.default_rng(seed)
     tree = params_to_tree(model)
 
@@ -125,16 +131,93 @@ def synthetic_params(model: YoloModel, seed: int = 0) -> Dict:
     def fill(node):
         if isinstance(node, dict) and "w" in node:
             conv(node)
-        else:
+        elif isinstance(node, (dict, list)):
             for v in (node.values() if isinstance(node, dict) else node):
                 fill(v)
 
     fill(tree)
     head = tree["layers"][str(model.head_idx)]
+    if model.version == 5:
+        for level in head["m"]:
+            conv(level, bn=False)
+        return tree
     for branch in (head["cv2"], head["cv3"]):
         for level in branch:
             conv(level[2], bn=False)
     return tree
+
+
+# ---------------------------------------------------------------------------
+# native int8 (the analog of the reference's RKNN / TensorRT int8 builds)
+# ---------------------------------------------------------------------------
+
+
+def quantize_params_int8(params) -> Dict:
+    """Per-output-channel symmetric int8 for every conv weight leaf, in
+    numpy exactly as the JAX package's ``quantize_params_int8``: each
+    {"w": [..., O], "b"} becomes {"w_q": int8, "w_scale": [O] fp32, "b"};
+    ``w_scale = max(max|w| / 127, 1e-12)`` over all axes but the last.
+    Non-conv leaves (biases, dense weights, v5 anchors) stay as they are."""
+
+    def q(node):
+        w = np.asarray(node["w"], dtype=np.float32)
+        if w.ndim < 4:  # only conv kernels (HWIO); keep dense weights fp
+            return node
+        scale = np.max(np.abs(w), axis=tuple(range(w.ndim - 1))) / 127.0
+        scale = np.maximum(scale, 1e-12)
+        wq = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+        out = {k: v for k, v in node.items() if k != "w"}
+        out["w_q"] = wq
+        out["w_scale"] = scale.astype(np.float32)
+        return out
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "w" in node:
+                return q(node)
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)
+
+
+def calibrate_int8_activations(model: YoloModel, sample_inputs,
+                               device: torch.device) -> int:
+    """Bake static per-tensor activation scales into a quantised module.
+
+    Runs the module eagerly over ``sample_inputs`` (model-ready fp32
+    arrays [N, H, W, 3], RGB in [0, 1]) on ``device``, a forward pre-hook
+    on every ``ConvAct`` recording the max |input| it saw (the JAX
+    package's ``_calibration_sink``), then sets ``a_scale = max(seen,
+    1e-8) / 127`` (fp32) on each int8 ``ConvAct`` that was called, as the
+    JAX package's ``calibrate_int8_activations``. The module's convs are
+    int8 already, so later convs see dynamically quantised inputs. The v5
+    head convs are not ``conv_act`` calls in the JAX package and are not
+    called as modules here either. Returns the number of scales baked."""
+    seen: Dict[ConvAct, list] = {}
+
+    def record(mod, args):
+        seen.setdefault(mod, []).append(float(args[0].to(torch.float32).abs().amax()))
+
+    hooks = [m.register_forward_pre_hook(record)
+             for m in model.modules() if isinstance(m, ConvAct)]
+    try:
+        with torch.inference_mode():
+            for x in sample_inputs:
+                model(torch.as_tensor(np.asarray(x, np.float32)).to(device))
+    finally:
+        for h in hooks:
+            h.remove()
+    baked = 0
+    for m, maxes in seen.items():
+        if m.w_q is not None:
+            m.a_scale = torch.tensor(max(max(maxes), 1e-8) / 127.0,
+                                     dtype=torch.float32, device=m.w_q.device)
+            baked += 1
+    logger.info("int8 calibration: baked %d activation scales", baked)
+    return baked
 
 
 def _tree_shapes(node):
@@ -191,18 +274,21 @@ def _bottleneck(sd, prefix: str) -> Dict:
 def yolo_params_from_state_dict(
     model: YoloModel, sd: Mapping[str, np.ndarray], prefix: str = "model."
 ) -> Dict:
-    """Map an Ultralytics-layout v8 state dict onto the params tree."""
+    """Map an Ultralytics-layout v5 or v8 state dict onto the params tree."""
     layers: Dict[str, Dict] = {}
     for i, node in enumerate(model.nodes):
         base = f"{prefix}{i}"
         if node.kind == "conv":
             layers[str(i)] = _conv_block(sd, base)
-        elif node.kind == "c2f":
-            layers[str(i)] = {
+        elif node.kind in ("c2f", "c3"):
+            p = {
                 "cv1": _conv_block(sd, f"{base}.cv1"),
                 "cv2": _conv_block(sd, f"{base}.cv2"),
                 "m": [_bottleneck(sd, f"{base}.m.{j}") for j in range(node.n)],
             }
+            if node.kind == "c3":
+                p["cv3"] = _conv_block(sd, f"{base}.cv3")
+            layers[str(i)] = p
         elif node.kind == "sppf":
             layers[str(i)] = {
                 "cv1": _conv_block(sd, f"{base}.cv1"),
@@ -222,6 +308,16 @@ def yolo_params_from_state_dict(
                     _fold_conv_bn(sd, f"{base}.cv3.{lvl}.2", None),
                 ])
             layers[str(i)] = {"cv2": cv2, "cv3": cv3}
+        elif node.kind == "detect_v5":
+            p = {"m": [_fold_conv_bn(sd, f"{base}.m.{lvl}", None) for lvl in range(3)]}
+            # the published .pt registers `anchors` divided by stride
+            # (yolov5 Detect.__init__); multiply back to input pixels
+            if f"{base}.anchors" in sd:
+                a = _np(sd[f"{base}.anchors"]).astype(np.float32)  # [3, na, 2]
+                p["anchors"] = a * np.asarray(STRIDES, np.float32)[:, None, None]
+            else:
+                p["anchors"] = np.asarray(V5_ANCHORS, np.float32)
+            layers[str(i)] = p
     return {"layers": layers}
 
 

@@ -1,4 +1,4 @@
-"""YOLOv8 (anchor-free, DFL) as a PyTorch ``nn.Module``.
+"""YOLOv8 (anchor-free, DFL) and YOLOv5 (anchor-based) as PyTorch modules.
 
 Counterpart of ``realtime_analytics_tpu/models/yolo.py``: the same
 declarative node graph (indices match the published Ultralytics YAML
@@ -11,11 +11,26 @@ channels_last. Outputs are decoded exactly as the reference's
 ``YoloModel.apply``: boxes in input-pixel xyxy plus either per-class
 scores or, with ``reduce_scores=True``, the per-anchor (conf, cls) pair.
 
+Decode semantics (the JAX package's):
+  * v8: DFL expectation over 16 bins -> ltrb cell distances -> xyxy * stride;
+    scores = sigmoid(cls logits);
+  * v5: sigmoid everything; xy = (2p - 0.5 + grid) * stride, wh = (2p)^2 *
+    anchor; scores = objectness * class probs, and with ``reduce_scores``
+    conf = sigmoid(obj) * sigmoid(max raw cls). The anchors live in the
+    params tree (a checkpoint's own override the defaults) and take the
+    engine's compute dtype with every other float, as in the JAX package.
+
 Kernels on this path: the fused stem B3 (nodes 0 + 1, ``pallas_stem``) and
-the head decode B2 (``pallas_decode``). ``"off"`` runs the plain
-layer-by-layer path. YOLOv5 is not ported yet (ROADMAP.md), and neither
-is the reference's neck fusion (an XLA HBM optimisation; plain upsample +
-concat here).
+the v8 head decode B2 (``pallas_decode``). ``"off"`` runs the plain
+layer-by-layer path. B3 needs the v8 k3-s2 stem and float weights: it is
+off for v5 (a k6 stem) and for int8 weights, as in the JAX package. The
+reference's neck fusion (an XLA HBM optimisation) is not ported: plain
+upsample + concat here.
+
+int8: every ``ConvAct`` that holds int8 weights runs the full int8 conv
+(``ops/int8.py``), as the JAX package's ``act_int8``; the v5 head conv
+stays weight-only (dequantised in bf16), as the JAX package's
+``_detect_v5``.
 """
 
 from __future__ import annotations
@@ -24,6 +39,7 @@ import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -34,7 +50,7 @@ from ..ops.stem import (
     prepare_stem,
     stem_geometry_ok,
 )
-from .layers import ConvAct, make_divisible, max_pool, upsample2x
+from .layers import ConvAct, conv2d, make_divisible, max_pool, upsample2x
 
 # ---------------------------------------------------------------------------
 # Graph spec (identical to the reference)
@@ -43,7 +59,7 @@ from .layers import ConvAct, make_divisible, max_pool, upsample2x
 
 @dataclass(frozen=True)
 class Node:
-    kind: str  # conv | c2f | sppf | upsample | concat | detect_v8
+    kind: str  # conv | c2f | c3 | sppf | upsample | concat | detect_v8 | detect_v5
     src: Tuple[int, ...]  # input node indices; -1 = previous node
     c2: int = 0  # output channels
     k: int = 1
@@ -61,6 +77,20 @@ V8_SCALES = {  # depth, width, max_channels
     "x": (1.00, 1.25, 512),
 }
 
+V5_SCALES = {  # depth, width
+    "n": (0.33, 0.25),
+    "s": (0.33, 0.50),
+    "m": (0.67, 0.75),
+    "l": (1.00, 1.00),
+    "x": (1.33, 1.25),
+}
+
+V5_ANCHORS = (  # per level (P3, P4, P5), (w, h) pairs at input scale
+    ((10, 13), (16, 30), (33, 23)),
+    ((30, 61), (62, 45), (59, 119)),
+    ((116, 90), (156, 198), (373, 326)),
+)
+
 STRIDES = (8, 16, 32)
 
 
@@ -70,10 +100,10 @@ STRIDES = (8, 16, 32)
 
 
 class Bottleneck(nn.Module):
-    def __init__(self, c1: int, c2: int):
+    def __init__(self, c1: int, c2: int, k1: int = 3, k2: int = 3):
         super().__init__()
-        self.cv1 = ConvAct(c1, c2, 3)
-        self.cv2 = ConvAct(c2, c2, 3)
+        self.cv1 = ConvAct(c1, c2, k1)
+        self.cv2 = ConvAct(c2, c2, k2)
 
     def forward(self, x: torch.Tensor, shortcut: bool) -> torch.Tensor:
         y = self.cv2(self.cv1(x))
@@ -98,6 +128,27 @@ class C2f(nn.Module):
             cur = blk(cur, self.shortcut)
             ys.append(cur)
         return self.cv2(torch.cat(ys, dim=1))
+
+
+class C3(nn.Module):
+    """YOLOv5 CSP block: two 1x1 branches, bottlenecks (1x1 then 3x3) on
+    the first, a 1x1 over their concat."""
+
+    def __init__(self, c1: int, c2: int, n: int, shortcut: bool):
+        super().__init__()
+        c = int(c2 * 0.5)
+        self.cv1 = ConvAct(c1, c, 1)
+        self.cv2 = ConvAct(c1, c, 1)
+        self.cv3 = ConvAct(2 * c, c2, 1)
+        self.m = nn.ModuleList(Bottleneck(c, c, 1, 3) for _ in range(n))
+        self.shortcut = shortcut
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.cv1(x)
+        b = self.cv2(x)
+        for blk in self.m:
+            a = blk(a, self.shortcut)
+        return self.cv3(torch.cat([a, b], dim=1))
 
 
 class SPPF(nn.Module):
@@ -163,15 +214,84 @@ class DetectV8(nn.Module):
         return {"boxes_xyxy": boxes, "scores": torch.cat(scores, dim=1)}
 
 
+class DetectV5(nn.Module):
+    """Anchor-based v5 head: one 1x1 conv per level to na * (nc + 5)
+    channels, ordered (anchor, [x, y, w, h, obj, classes...]). Params tree:
+    {"m": [conv per level], "anchors": [3, na, 2] input pixels}."""
+
+    def __init__(self, ch: Sequence[int], nc: int):
+        super().__init__()
+        self.nc, self.na = nc, len(V5_ANCHORS[0])
+        self.m = nn.ModuleList(ConvAct(c, self.na * (nc + 5), 1, act=False) for c in ch)
+        self.register_buffer("anchors", torch.tensor(V5_ANCHORS, dtype=torch.float32))
+
+    def load_tree(self, node, path: str) -> None:
+        if len(node["m"]) != len(self.m):
+            raise ValueError(f"{path}.m: tree has {len(node['m'])} levels, module {len(self.m)}")
+        for j, conv in enumerate(self.m):
+            conv.load_tree(node["m"][j], f"{path}.m.{j}")
+        anchors = np.array(node.get("anchors", V5_ANCHORS), np.float32)  # a writable copy
+        if anchors.shape != tuple(self.anchors.shape):
+            raise ValueError(f"{path}.anchors: {anchors.shape} is not {tuple(self.anchors.shape)}")
+        with torch.no_grad():
+            self.anchors.copy_(torch.from_numpy(anchors))
+
+    def to_tree(self):
+        return {"m": [conv.to_tree() for conv in self.m],
+                "anchors": self.anchors.detach().float().cpu().numpy().copy()}
+
+    def forward(self, feats: Sequence[torch.Tensor],
+                reduce_scores: bool) -> Dict[str, torch.Tensor]:
+        boxes_all, scores_all, conf_all, cls_all = [], [], [], []
+        for lvl, x in enumerate(feats):
+            stride = float(STRIDES[lvl])
+            n, _, h, w = x.shape
+            conv = self.m[lvl]  # weight-only, also for int8 weights (JAX _detect_v5)
+            # the bias added to the rounded conv output, as the JAX conv2d
+            raw = conv2d(x, conv.plain_weight(x.dtype)) + conv.bias.to(x.dtype)[:, None, None]
+            raw = raw.permute(0, 2, 3, 1).reshape(n, h, w, self.na, self.nc + 5)
+            y = torch.sigmoid(raw[..., :5].to(torch.float32))
+            gy, gx = torch.meshgrid(
+                torch.arange(h, dtype=torch.float32, device=x.device),
+                torch.arange(w, dtype=torch.float32, device=x.device), indexing="ij")
+            anchors = self.anchors[lvl].to(torch.float32)  # [na, 2] input px
+            cx = (y[..., 0] * 2.0 - 0.5 + gx[..., None]) * stride
+            cy = (y[..., 1] * 2.0 - 0.5 + gy[..., None]) * stride
+            bw = (y[..., 2] * 2.0) ** 2 * anchors[:, 0]
+            bh = (y[..., 3] * 2.0) ** 2 * anchors[:, 1]
+            boxes_all.append(torch.stack(
+                [cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], dim=-1
+            ).reshape(n, h * w * self.na, 4))
+            obj = y[..., 4]
+            if reduce_scores:
+                # conf = sigmoid(obj) * max(sigmoid(cls)): the max runs on
+                # the raw logits (sigmoid is monotonic)
+                logits = raw[..., 5:]
+                best = logits.amax(dim=-1).to(torch.float32)
+                conf_all.append((obj * torch.sigmoid(best)).reshape(n, -1))
+                cls_all.append(logits.argmax(dim=-1).to(torch.int32).reshape(n, -1))
+            else:
+                probs = torch.sigmoid(raw[..., 5:].to(torch.float32))
+                scores_all.append((probs * obj[..., None]).reshape(n, -1, self.nc))
+        out = {"boxes_xyxy": torch.cat(boxes_all, dim=1)}
+        if reduce_scores:
+            out["conf"] = torch.cat(conf_all, dim=1)
+            out["cls"] = torch.cat(cls_all, dim=1)
+        else:
+            out["scores"] = torch.cat(scores_all, dim=1)
+        return out
+
+
 # ---------------------------------------------------------------------------
 # Model
 # ---------------------------------------------------------------------------
 
 
 class YoloModel(nn.Module):
-    """YOLOv8 graph + decode. ``pallas_stem`` / ``pallas_decode`` are
-    "off" (plain path) or "on" (the kernel wrappers: the CUDA kernel on a
-    card, the plain version on the CPU); the engine sets them from config."""
+    """YOLOv5 / YOLOv8 graph + decode. ``pallas_stem`` / ``pallas_decode``
+    are "off" (plain path) or "on" (the kernel wrappers: the CUDA kernel on
+    a card, the plain version on the CPU); the engine sets them from
+    config."""
 
     def __init__(self, version: int, size: str, nc: int, nodes: List[Node],
                  channels: List[int], head_srcs: List[int]):
@@ -198,18 +318,31 @@ class YoloModel(nn.Module):
             return ConvAct(cins[0], node.c2, node.k, node.s, node.p)
         if node.kind == "c2f":
             return C2f(cins[0], node.c2, node.n, node.shortcut)
+        if node.kind == "c3":
+            return C3(cins[0], node.c2, node.n, node.shortcut)
         if node.kind == "sppf":
             return SPPF(cins[0], node.c2, node.k)
         if node.kind == "detect_v8":
             return DetectV8(cins, self.nc)
+        if node.kind == "detect_v5":
+            return DetectV5(cins, self.nc)
         return None
+
+    @property
+    def act_int8(self) -> bool:
+        """The convs hold int8 weights (``weights.quantize_params_int8``),
+        so they run the int8 conv: the JAX package's ``act_int8`` on a
+        quantised tree."""
+        return self.layers["0"].w_q is not None
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
         """Seeded He-normal init with the reference's conventions: zero
-        biases, DFL box biases 1, class biases log(0.01/0.99) (random-init
-        models stay quiet). The numbers differ from the JAX init's (another
-        generator); tests carry weights across instead."""
+        biases; v8: DFL box biases 1, class biases log(0.01/0.99); v5:
+        objectness biases log(8 / (640 / stride)^2), class biases
+        log(0.6 / (nc - 0.999999)) (random-init models stay quiet). The
+        numbers differ from the JAX init's (another generator); tests carry
+        weights across instead."""
         for mod in self.modules():
             if isinstance(mod, ConvAct):
                 fan_in = mod.weight[0].numel()
@@ -219,15 +352,28 @@ class YoloModel(nn.Module):
                 )
                 mod.bias.zero_()
         head = self.layers[str(self.head_idx)]
+        if isinstance(head, DetectV5):
+            for lvl, conv in enumerate(head.m):
+                b = conv.bias.view(head.na, self.nc + 5)
+                b[:, 4] = math.log(8.0 / (640.0 / STRIDES[lvl]) ** 2)
+                b[:, 5:] = math.log(0.6 / (self.nc - 0.999999)) if self.nc > 1 else 0.0
+            return
         for lvl in range(len(head.cv2)):
             head.cv2[lvl][2].bias.fill_(1.0)
             head.cv3[lvl][2].bias.fill_(math.log(0.01 / 0.99))
 
     def stem_ok(self, h: int, w: int, dtype: torch.dtype = torch.float32) -> bool:
+        """The fused stem applies: the stem nodes fit with float weights
+        (``stem_nodes_ok``) and the input geometry passes the kernel's gate
+        for ``dtype`` (ops/stem.stem_geometry_ok)."""
+        return self.stem_nodes_ok() and stem_geometry_ok(
+            h, w, self.channels[0], self.channels[1], dtype)
+
+    def stem_nodes_ok(self) -> bool:
         """Nodes 0 and 1 are k3-s2 convs with single consumers (every
-        published v8 layout) and the input geometry passes the kernel's
-        gate for ``dtype`` (ops/stem.stem_geometry_ok)."""
-        if len(self.nodes) < 3:
+        published v8 layout; not v5, whose stem is k6) and float weights
+        (not ``act_int8``: the kernel computes in bf16 / fp32)."""
+        if self.act_int8 or len(self.nodes) < 3:
             return False
         n0, n1 = self.nodes[:2]
         if not (n0.kind == n1.kind == "conv" and n0.k == n1.k == 3
@@ -237,9 +383,7 @@ class YoloModel(nn.Module):
         for j, nd in enumerate(self.nodes):
             for s in nd.src:
                 consumers.setdefault(s if s >= 0 else j - 1, []).append(j)
-        if any(consumers.get(i) != [i + 1] for i in range(2)):
-            return False
-        return stem_geometry_ok(h, w, self.channels[0], self.channels[1], dtype)
+        return all(consumers.get(i) == [i + 1] for i in range(2))
 
     def stem_weights(self, dtype: torch.dtype,
                      w0: Optional[torch.Tensor] = None) -> StemWeights:
@@ -278,7 +422,7 @@ class YoloModel(nn.Module):
             mod = self.layers[str(i)] if str(i) in self.layers else None
             if node.kind == "conv":
                 y = mod(ins[0], weight=w0 if i == 0 else None)
-            elif node.kind in ("c2f", "sppf"):
+            elif node.kind in ("c2f", "c3", "sppf"):
                 y = mod(ins[0])
             elif node.kind == "upsample":
                 y = upsample2x(ins[0])
@@ -286,6 +430,8 @@ class YoloModel(nn.Module):
                 y = torch.cat(ins, dim=1)
             elif node.kind == "detect_v8":
                 return mod(ins, reduce_scores, self.pallas_decode)
+            elif node.kind == "detect_v5":
+                return mod(ins, reduce_scores)
             else:  # pragma: no cover
                 raise ValueError(f"unknown node kind {node.kind}")
             outs[i] = y
@@ -294,7 +440,8 @@ class YoloModel(nn.Module):
 
     def num_anchors(self, input_hw: Tuple[int, int]) -> int:
         h, w = input_hw
-        return sum((h // s) * (w // s) for s in STRIDES)
+        total = sum((h // s) * (w // s) for s in STRIDES)
+        return total * (len(V5_ANCHORS[0]) if self.version == 5 else 1)
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +487,46 @@ def _v8_graph(size: str, nc: int) -> Tuple[List[Node], List[int], List[int]]:
     return nodes, _infer_channels(nodes), [15, 18, 21]
 
 
+def _v5_graph(size: str, nc: int) -> Tuple[List[Node], List[int], List[int]]:
+    d, wmul = V5_SCALES[size]
+
+    def ch(c):
+        return make_divisible(c * wmul, 8)
+
+    def rep(n):
+        return max(round(n * d), 1)
+
+    N = Node
+    nodes = [
+        N("conv", (-1,), ch(64), k=6, s=2, p=2),                 # 0 P1
+        N("conv", (-1,), ch(128), k=3, s=2),                     # 1 P2
+        N("c3", (-1,), ch(128), n=rep(3), shortcut=True),        # 2
+        N("conv", (-1,), ch(256), k=3, s=2),                     # 3 P3
+        N("c3", (-1,), ch(256), n=rep(6), shortcut=True),        # 4
+        N("conv", (-1,), ch(512), k=3, s=2),                     # 5 P4
+        N("c3", (-1,), ch(512), n=rep(9), shortcut=True),        # 6
+        N("conv", (-1,), ch(1024), k=3, s=2),                    # 7 P5
+        N("c3", (-1,), ch(1024), n=rep(3), shortcut=True),       # 8
+        N("sppf", (-1,), ch(1024), k=5),                         # 9
+        N("conv", (-1,), ch(512), k=1, s=1),                     # 10
+        N("upsample", (-1,)),                                    # 11
+        N("concat", (-1, 6)),                                    # 12
+        N("c3", (-1,), ch(512), n=rep(3), shortcut=False),       # 13
+        N("conv", (-1,), ch(256), k=1, s=1),                     # 14
+        N("upsample", (-1,)),                                    # 15
+        N("concat", (-1, 4)),                                    # 16
+        N("c3", (-1,), ch(256), n=rep(3), shortcut=False),       # 17 P3 out
+        N("conv", (-1,), ch(256), k=3, s=2),                     # 18
+        N("concat", (-1, 14)),                                   # 19
+        N("c3", (-1,), ch(512), n=rep(3), shortcut=False),       # 20 P4 out
+        N("conv", (-1,), ch(512), k=3, s=2),                     # 21
+        N("concat", (-1, 10)),                                   # 22
+        N("c3", (-1,), ch(1024), n=rep(3), shortcut=False),      # 23 P5 out
+        N("detect_v5", (17, 20, 23), nc),                        # 24
+    ]
+    return nodes, _infer_channels(nodes), [17, 20, 23]
+
+
 def _infer_channels(nodes: List[Node]) -> List[int]:
     channels: List[int] = []
     for i, node in enumerate(nodes):
@@ -356,16 +543,12 @@ def _infer_channels(nodes: List[Node]) -> List[int]:
 
 
 def build_yolo(model_type: str = "yolov8", size: str = "n", nc: int = 80) -> YoloModel:
-    """Build a YOLO model. Only ``yolov8`` is ported so far."""
+    """Build a YOLO model. ``model_type`` in {yolov5, yolov8}."""
+    if model_type == "yolov8":
+        return YoloModel(8, size, nc, *_v8_graph(size, nc))
     if model_type == "yolov5":
-        raise NotImplementedError(
-            "yolov5 is not ported to the PyTorch package yet — see "
-            "ROADMAP.md (Queue A); use yolov8 or the JAX package"
-        )
-    if model_type != "yolov8":
-        raise ValueError(f"unsupported YOLO model_type: {model_type}")
-    nodes, channels, head_srcs = _v8_graph(size, nc)
-    return YoloModel(8, size, nc, nodes, channels, head_srcs)
+        return YoloModel(5, size, nc, *_v5_graph(size, nc))
+    raise ValueError(f"unsupported YOLO model_type: {model_type}")
 
 
 def size_from_model_path(model_path: str, default: str = "n") -> str:

@@ -2,11 +2,12 @@
 
     python -m realtime_analytics_tpu_torch.scripts.profile_step \\
         [--batch 32] [--reps 20] [--trace-steps 5] [--conf 0.25] \\
-        [--out profile_step.json]
+        [--precision bf16|int8] [--out profile_step.json]
 
-Builds the main path's engine (YOLOv8n, 640 input, bf16, one bucket of
-``--batch``, seeded synthetic weights), feeds it ``--batch`` synthetic 1080p
-frames (an exact 3x host pick, the selected step) and reports:
+Builds the main path's engine (YOLOv8n, 640 input, bf16 or the native int8
+of ``--precision int8``, one bucket of ``--batch``, seeded synthetic
+weights), feeds it ``--batch`` synthetic 1080p frames (an exact 3x host
+pick, the selected step) and reports:
 
 1. ``stages``: the step cut into its stages on the host clock, each ending
    in a synchronise (median of ``--reps``): host pick, upload, pad + cast,
@@ -62,14 +63,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def build_engine(batch: int, conf: float):
+def build_engine(batch: int, conf: float, precision: str = "bf16"):
     from ..config import DetectorConfig
     from ..engine.detector import TorchYoloEngine
     from ..models.weights import synthetic_params
     from ..models.yolo import build_yolo
 
     cfg = DetectorConfig(
-        model_path="profile-seeded-weights", device="cuda", precision="bf16",
+        model_path="profile-seeded-weights", device="cuda", precision=precision,
         confidence_threshold=conf, warmup=False, input_size=[640, 640],
         max_batch_size=batch, batch_buckets=[batch],
     )
@@ -254,6 +255,7 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-steps", type=int, default=5)
     ap.add_argument("--depth", type=int, default=2)
     ap.add_argument("--conf", type=float, default=0.25)
+    ap.add_argument("--precision", choices=("bf16", "int8"), default="bf16")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -261,12 +263,12 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     card = card_line()
-    eng = build_engine(args.batch, args.conf)
+    eng = build_engine(args.batch, args.conf, args.precision)
     frames = synthetic_frames(args.batch)
     stages = stage_times(eng, frames, args.reps)
     steps = step_times(eng, frames, args.reps)
     result = dict(
-        card=card, batch=args.batch, conf=args.conf,
+        card=card, batch=args.batch, conf=args.conf, precision=args.precision,
         stages_ms=stages, stages_sum_ms=sum(stages.values()),
         step_ms_median=statistics.median(steps), step_ms_min=min(steps),
         frames_per_s=args.batch / statistics.median(steps) * 1e3,

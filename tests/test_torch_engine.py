@@ -169,9 +169,7 @@ def test_device_rules():
     (dict(model_type="resnet", mesh_shape=[2, 1]), "ResNet"),
     (dict(model_type="cnn_lstm", mesh_shape=[2, 1]), "temporal"),
     (dict(model_path="model.rvae"), "rvae"),
-    (dict(precision="int8"), "int8"),
     (dict(mesh_shape=[2, 1]), "mesh_shape"),
-    (dict(tiling=True), "tiling"),
     (dict(model_path="weights.onnx"), "onnx"),
 ])
 def test_unported_routes_raise(over, match):

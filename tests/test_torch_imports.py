@@ -30,6 +30,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 30, names
+assert {"realtime_analytics_tpu_torch.ops.int8",
+        "realtime_analytics_tpu_torch.ops.tiling"} <= set(names), names
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)

@@ -139,8 +139,3 @@ def test_synthetic_params_fit_the_module_and_are_seeded():
         np.testing.assert_array_equal(x, y)
         assert not np.array_equal(x, z)
     params_from_jax(model, a)  # loads without a shape complaint
-
-
-def test_yolov5_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_yolo("yolov5", "n", 80)
