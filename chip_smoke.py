@@ -23,7 +23,8 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
    widths and fp32 on the general kernel, plus two small general-kernel
    cases, each printed with the instantiation it took; B4 letterbox:
    32 x 1080p -> 640 (H select), 32 x 720p -> 640 (H mean2),
-   32 x 1520x2688 -> 640 (H fractional), all bf16, 32 x 1080p -> 224x224
+   32 x 1520x2688 -> 640 (H fractional), all bf16, 32 x 1080p -> 640 H
+   select fp32 (the ONNX graph path's letterbox), 32 x 1080p -> 224x224
    fp32, the ResNet stretch, 64 x 1080p -> 224x224 and -> 112x112 fp32,
    the temporal clip stretches, and a 97x211 source, whose rows take the
    element instantiation, each bit-equal to the plain version), timed with
@@ -66,16 +67,32 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
     SlowFast at 112; T = 16, 400 classes) on 4 clips of 16 synthetic 1080p
     frames with ``host_resize: off``, top-5 against ``pallas_preprocess:
     off``;
-11. the pipelines: ``AnalyticsPipeline`` with 32 pooled ``synthetic://``
+11. generic ONNX-graph serving ("onnx"): the seeded YOLOv8n written by the
+    port's ``yolo_to_onnx`` (``images`` [N, 3, 640, 640] -> ``output0``
+    [N, 84, 8400], the stock Ultralytics layout) served through
+    ``create_detector`` on the 32 1080p frames at fp32: full frames through
+    B4 (``select``) once a step, B1 twice, B2 and B3 never; detections held
+    against the native fp32 engine on the same tree and against the same
+    engine with ``pallas_preprocess: off`` and ``pallas_gather: off``; the
+    upload, the device step and the graph's host cost planned and
+    unplanned; then ``graph_precision: bf16`` (conf delta and matched
+    share against fp32, reported); a static-batch copy (Reshape ``0`` dims
+    set to 1) through ``torch.func.vmap`` within 1e-4 of the dynamic graph;
+    a ResNet-50 classifier graph written with ``onnx_lite`` from the seeded
+    tree (B4 ``stretch``), top-5 equal to ``TorchResNetEngine``'s; and
+    ``ConvInteger``, ``MatMulInteger``, ``QLinearConv``, ``QLinearMatMul``,
+    ``DequantizeLinear`` on single-node graphs, bit-equal to the numpy
+    oracle;
+12. the pipelines: ``AnalyticsPipeline`` with 32 pooled ``synthetic://``
     1080p streams at 25 fps on YOLOv8n for about 15 s, then 8 such streams
     on ResNet-50 with ``host_resize: off`` for about 5 s;
-12. the ``{"kernels": [...]}`` line, the card line, and last
+13. the ``{"kernels": [...]}`` line, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
-Every path of phases 4-11 runs with the launch counters set to 0 just
+Every path of phases 4-12 runs with the launch counters set to 0 just
 before and read just after; each fails unless the kernels it runs were
 launched (the YOLO v8 steps: ``decode_v8`` exactly once a step) and, on
-the int8 and v5 paths, unless the kernels those paths skip were not. A
+the int8, v5 and ONNX paths, unless the kernels those paths skip were not. A
 kernel's ``launches`` in the kernels line is its count on one step of the
 path its row times (the main path for B1-B3, the device-resize step for
 B4), and ``launches_by_path`` holds each path's own count. Any failure
@@ -97,6 +114,7 @@ import numpy as np
 import torch
 
 N = 32  # frames per step: the 32-stream main path's bucket
+ONNX_CONF = 0.25  # the graph phase's threshold: fp32 near ties stay apart after NMS
 HW = 640
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
@@ -484,6 +502,7 @@ def check_letterbox(gen):
 
     # the temporal clip steps stretch 4 clips x 16 frames = 64 frames
     cases = (("select", N, (1080, 1920), (640, 640), False, torch.bfloat16),
+             ("select_f32", N, (1080, 1920), (640, 640), False, torch.float32),  # ONNX graph
              ("mean2", N, (720, 1280), (640, 640), False, torch.bfloat16),
              ("matmul", N, (1520, 2688), (640, 640), False, torch.bfloat16),
              ("stretch", N, (1080, 1920), (224, 224), True, torch.float32),
@@ -1150,7 +1169,370 @@ def run_temporal(frames):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the pipelines
+# phase 11: generic ONNX-graph serving (B4 and B1)
+# ---------------------------------------------------------------------------
+
+
+def resnet_to_onnx(tree, path: str, hw: int) -> None:
+    """A ResNet-50 params tree (HWIO, BN folded) as a plain classifier ONNX
+    graph, written with ``onnx_lite.write_onnx_model``: input ``images``
+    [N, 3, hw, hw], output ``logits``. Matches no checkpoint layout, so the
+    engine serves it as a graph."""
+    from realtime_analytics_tpu_torch.models.onnx_lite import (
+        OnnxGraph,
+        OnnxNode,
+        write_onnx_model,
+    )
+
+    nodes, inits = [], {}
+
+    def conv(x, p, k, s, name):
+        inits[f"{name}.w"] = np.ascontiguousarray(np.asarray(p["w"], np.float32).transpose(3, 2, 0, 1))
+        inits[f"{name}.b"] = np.asarray(p["b"], np.float32)
+        nodes.append(OnnxNode("Conv", [x, f"{name}.w", f"{name}.b"], [name],
+                              attrs={"strides": [s, s], "pads": [k // 2] * 4}))
+        return name
+
+    def relu(x):
+        nodes.append(OnnxNode("Relu", [x], [f"{x}.relu"]))
+        return f"{x}.relu"
+
+    y = relu(conv("images", tree["stem"], 7, 2, "stem"))
+    nodes.append(OnnxNode("MaxPool", [y], ["pool"], attrs={
+        "kernel_shape": [3, 3], "strides": [2, 2], "pads": [1, 1, 1, 1]}))
+    y = "pool"
+    for si, blocks in enumerate(tree["layers"]):
+        for bi, blk in enumerate(blocks):
+            s = 2 if si > 0 and bi == 0 else 1
+            n = f"l{si}.{bi}"
+            h = relu(conv(y, blk["conv1"], 1, 1, f"{n}.c1"))
+            h = relu(conv(h, blk["conv2"], 3, s, f"{n}.c2"))
+            h = conv(h, blk["conv3"], 1, 1, f"{n}.c3")
+            ident = conv(y, blk["down"], 1, s, f"{n}.down") if blk.get("down") else y
+            nodes.append(OnnxNode("Add", [h, ident], [f"{n}.sum"]))
+            y = relu(f"{n}.sum")
+    nodes.append(OnnxNode("GlobalAveragePool", [y], ["gap"]))
+    nodes.append(OnnxNode("Flatten", ["gap"], ["flat"], attrs={"axis": 1}))
+    inits["fc.w"] = np.asarray(tree["fc"]["w"], np.float32)
+    inits["fc.b"] = np.asarray(tree["fc"]["b"], np.float32)
+    nodes.append(OnnxNode("Gemm", ["flat", "fc.w", "fc.b"], ["logits"]))
+    write_onnx_model(path, OnnxGraph(nodes=nodes, initializers=inits, inputs=["images"],
+                                     outputs=["logits"]),
+                     value_infos={"images": (np.float32, ("N", 3, hw, hw)),
+                                  "logits": (np.float32, ("N", inits["fc.b"].shape[0]))})
+
+
+def static_batch_copy(src: str, dst: str) -> int:
+    """The graph with every Reshape target's 0 (copy-the-batch) dim set to
+    1: batch 1 baked in, as a stock static Ultralytics export. Returns the
+    number of targets changed."""
+    from realtime_analytics_tpu_torch.models.onnx_lite import read_onnx_model, write_onnx_model
+
+    g = read_onnx_model(src)
+    targets = {n.inputs[1] for n in g.nodes if n.op_type == "Reshape"}
+    for name in targets:
+        t = g.initializers[name].copy()
+        t[t == 0] = 1
+        g.initializers[name] = t
+    write_onnx_model(dst, g)
+    return len(targets)
+
+
+def hold_against_native(eng, native, frames, res):
+    """The graph engine against the native fp32 engine on the same tree.
+    Before NMS, on the same pixels (the graph on the device letterbox, the
+    native model on the host pick with its stem-folded weights): conf
+    within 1e-4, boxes within 1e-2 px, classes agreeing on >= 0.999 of the
+    anchors. After NMS, frame by frame: equal counts and class multisets,
+    each detection paired with the nearest box of its class on the other
+    side, scores within 1e-3 and boxes within 0.5 px, except a near-tie
+    swap: a pair whose scores are equal to 1e-6 with boxes apart. The
+    seeded model scores every anchor 0.5-0.61, so all 8400 pass conf 0.25
+    and the 512 candidates NMS takes (``pre_nms_topk``) are cut among
+    scores equal to 1e-6: at the cut, the two models' last-bit differences
+    hand NMS different candidates. Swaps are counted and reported; the
+    model outputs above hold every anchor."""
+    from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
+
+    spec = letterbox_spec(frames.shape[1:3], eng.input_hw)
+    with torch.inference_mode():
+        got = eng.model(eng._device_letterbox(torch.from_numpy(frames).cuda(), spec),
+                        reduce_scores=True)
+    want = model_outputs(native, frames)
+    conf_d = (got["conf"] - want["conf"]).abs().max().item()
+    box_d = (got["boxes_xyxy"] - want["boxes_xyxy"]).abs().max().item()
+    cls_agree = (got["cls"] == want["cls"]).float().mean().item()
+    passing = (want["conf"] >= eng.config.confidence_threshold).sum(1).float().mean().item()
+    del got, want
+    ref = native.predict_arrays(frames)
+    same, swaps, score_d, box_d_nms = 0, 0, 0.0, 0.0
+    for i in range(N):
+        n = int(res.num_valid[i])
+        ca, cb = res.class_ids[i, :n], ref.class_ids[i, :n]
+        if n != int(ref.num_valid[i]) or not np.array_equal(np.sort(ca), np.sort(cb)):
+            continue
+        same += 1
+        free = list(range(n))
+        for j in range(n):
+            k = min((f for f in free if cb[f] == ca[j]), key=lambda f: float(
+                np.abs(res.boxes_xyxy[i, j] - ref.boxes_xyxy[i, f]).max()))
+            free.remove(k)
+            ds = abs(float(res.scores[i, j]) - float(ref.scores[i, k]))
+            db = float(np.abs(res.boxes_xyxy[i, j] - ref.boxes_xyxy[i, k]).max())
+            if db > 0.5 and ds <= 1e-6:
+                swaps += 1
+                continue
+            score_d, box_d_nms = max(score_d, ds), max(box_d_nms, db)
+    log(f"onnx graph fp32 against the native fp32 engine: model outputs max |conf| delta "
+        f"{conf_d:.3g} (<= 1e-4), max |box| delta {box_d:.3g} px (<= 1e-2), class agreement "
+        f"{cls_agree:.5f} (>= 0.999), {passing:.0f} anchors a frame pass the threshold; "
+        f"detections: {same}/{N} frames with equal counts and classes, max |score| delta "
+        f"{score_d:.3g} (tol 1e-3), max |box| delta {box_d_nms:.3g} px (tol 0.5), "
+        f"{swaps} near-tie swap(s)")
+    assert conf_d <= 1e-4 and box_d <= 1e-2 and cls_agree >= 0.999, "graph outputs drift"
+    assert same == N and score_d <= 1e-3 and box_d_nms <= 0.5, "graph detections differ"
+    return dict(model_conf_max_delta=conf_d, model_box_max_delta_px=box_d,
+                model_class_agreement=cls_agree, anchors_passing_mean=passing,
+                frames_equal=same, score_max_delta=score_d, box_max_delta_px=box_d_nms,
+                tie_swaps=swaps)
+
+
+def check_int_ops():
+    """The integer ops on single-node graphs on the card, bit-equal to the
+    numpy oracle (``onnx_exec.run_graph``, int64 arithmetic), with zero
+    points and uint8 operands."""
+    from realtime_analytics_tpu_torch.models.onnx_exec import run_graph
+    from realtime_analytics_tpu_torch.models.onnx_lite import OnnxGraph, OnnxNode
+    from realtime_analytics_tpu_torch.models.onnx_torch import compile_graph
+
+    rng = np.random.default_rng(6)
+
+    def i8(*shape, dtype=np.int8):
+        info = np.iinfo(dtype)
+        return rng.integers(info.min, info.max + 1, shape).astype(dtype)
+
+    xq, a, b = i8(4, 32, 40, 40, dtype=np.uint8), i8(512, 256, dtype=np.uint8), i8(256, 384)
+    cases = {
+        "ConvInteger": ("ConvInteger", ["x", "w", "xz", "wz"],
+                        {"w": i8(64, 32, 3, 3), "xz": np.array(117, np.uint8),
+                         "wz": np.array(3, np.int8)}, {"pads": [1, 1, 1, 1]}, xq),
+        "MatMulInteger": ("MatMulInteger", ["x", "b", "az", "bz"],
+                          {"b": b, "az": np.array(131, np.uint8),
+                           "bz": rng.integers(-4, 5, 384).astype(np.int8)}, {}, a),
+        "QLinearConv": ("QLinearConv", ["x", "xs", "xz", "w", "ws", "wz", "ys", "yz", "bias"],
+                        {"xs": np.array(0.02, np.float32), "xz": np.array(117, np.uint8),
+                         "w": i8(64, 32, 3, 3),
+                         "ws": rng.uniform(0.001, 0.01, 64).astype(np.float32),
+                         "wz": np.zeros(64, np.int8), "ys": np.array(0.5, np.float32),
+                         "yz": np.array(128, np.uint8),
+                         "bias": rng.integers(-2000, 2000, 64).astype(np.int32)},
+                        {"pads": [1, 1, 1, 1], "strides": [2, 2]}, xq),
+        "QLinearMatMul": ("QLinearMatMul", ["x", "as", "az", "b", "bs", "bz", "ys", "yz"],
+                          {"as": np.array(0.02, np.float32), "az": np.array(131, np.uint8),
+                           "b": b, "bs": np.array(0.01, np.float32),
+                           "bz": np.array(0, np.int8), "ys": np.array(2.0, np.float32),
+                           "yz": np.array(-3, np.int8)}, {}, a),
+        "DequantizeLinear": ("DequantizeLinear", ["x", "s", "z"],
+                             {"s": rng.uniform(0.01, 0.1, 32).astype(np.float32),
+                              "z": rng.integers(100, 150, 32).astype(np.uint8)},
+                             {"axis": 1}, xq),
+    }
+    out = {}
+    for name, (op, ins, inits, attrs, x) in cases.items():
+        g = OnnxGraph(nodes=[OnnxNode(op, ins, ["y"], attrs=attrs)], initializers=inits,
+                      inputs=["x"], outputs=["y"])
+        with torch.inference_mode():
+            (got,) = compile_graph(g)({"x": torch.from_numpy(x).cuda()})
+            torch.cuda.synchronize()
+        (want,) = run_graph(g, {"x": x})
+        got = got.cpu().numpy()
+        equal = got.shape == want.shape and np.array_equal(got, want)
+        out[name] = dict(x=list(x.shape), out=list(want.shape), dtype=str(want.dtype),
+                         bit_equal=bool(equal))
+        log(f"onnx int op {name}: x {list(x.shape)} -> {list(want.shape)} {want.dtype}, "
+            f"bit-equal to the numpy oracle: {equal}")
+        assert equal, f"integer op {name} differs from the oracle on the card"
+    return out
+
+
+def run_onnx(params, frames, resnet_params):
+    """Generic ONNX-graph serving: the seeded YOLOv8n written by the port's
+    ``yolo_to_onnx`` (input ``images`` [N, 3, 640, 640], output ``output0``
+    [N, 84, 8400]) served through ``create_detector`` on 32 x 1080p at fp32
+    (full frames: B4 ``select`` once a step, B1 twice, no B2 or B3), held
+    against the native fp32 engine on the same tree and against the same
+    engine with B4 and B1 off; at ``graph_precision: bf16``; a static-batch
+    copy through ``torch.func.vmap``; a ResNet-50 classifier graph (B4
+    ``stretch``) against the native engine; the integer ops."""
+    from realtime_analytics_tpu_torch.engine.detector import (
+        TorchResNetEngine,
+        TorchYoloEngine,
+        create_detector,
+    )
+    from realtime_analytics_tpu_torch.models.onnx_export import yolo_to_onnx
+    from realtime_analytics_tpu_torch.models.onnx_lite import read_onnx_model
+    from realtime_analytics_tpu_torch.models.yolo import build_yolo
+    from realtime_analytics_tpu_torch.ops import _cuda
+    from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
+
+    wdir = ROOT / "build" / "chip_smoke"
+    wdir.mkdir(parents=True, exist_ok=True)
+    path = str(wdir / "yolov8n_seeded.onnx")
+    t0 = time.perf_counter()
+    yolo_to_onnx(build_yolo("yolov8", "n", 80), params, path, (HW, HW))
+    export_s = time.perf_counter() - t0
+    n_nodes = len(read_onnx_model(path).nodes)
+    paths, out = {}, dict(export_s=export_s, graph_nodes=n_nodes)
+
+    def cfg(**over):
+        return detector_config(model_path=path, precision="fp32", confidence_threshold=ONNX_CONF,
+                               **over)
+
+    def step_launches(eng, name, kernels):
+        eng.predict_arrays(frames)  # plans the graph at this shape, cuDNN choices
+        torch.cuda.synchronize()
+        _cuda.LAUNCHES.reset()
+        res = eng.predict_arrays(frames)
+        paths[name] = launches = _cuda.LAUNCHES.snapshot()
+        log(f"{name} path launches {json.dumps(launches)}")
+        for k, want in kernels.items():
+            assert launches[k] == want, f"{name}: {k} launched {launches[k]} times, not {want}"
+        assert res.boxes_xyxy.shape == (N, 300, 4) and np.isfinite(res.boxes_xyxy).all()
+        assert np.isfinite(res.scores).all() and (res.num_valid > 0).all()
+        return res
+
+    t0 = time.perf_counter()
+    eng = create_detector(cfg())
+    out["engine_build_s"] = time.perf_counter() - t0
+    assert eng.model.graph_backed and eng.model.dynamic_batch
+    assert eng.compute_dtype == torch.float32
+    assert not eng.host_prepare(frames, frames.shape[1:3])[1], "the graph path takes full frames"
+    path_kernels = {"letterbox": 1, "row_gather": 2, "decode_v8": 0, "fused_stem": 0}
+    res = step_launches(eng, "onnx_yolo", path_kernels)
+    log(f"onnx_yolo num_valid per frame {res.num_valid.tolist()}")
+    native = TorchYoloEngine(detector_config(precision="fp32", confidence_threshold=ONNX_CONF),
+                             params=params)
+    native_out = hold_against_native(eng, native, frames, res)
+    del native
+    off = create_detector(cfg(pallas_preprocess="off", pallas_gather="off"))
+    off.predict_arrays(frames)
+    _cuda.LAUNCHES.reset()
+    res_off = off.predict_arrays(frames)
+    assert not any(_cuda.LAUNCHES.snapshot().values()), "kernels launched with B4 and B1 off"
+    _, off_score, off_box = hold("onnx graph fp32, B4 + B1 on against off", res, res_off,
+                                 score_tol=1e-5, box_tol=1e-3)
+    del off
+
+    # where a step's time goes: the upload of 32 full frames (pageable), the
+    # device step on resident frames, the host's cost of the graph alone
+    # planned and unplanned (once each, unsynchronised: the enqueue), and
+    # the plan's op count against the graph's nodes
+    spec = letterbox_spec(frames.shape[1:3], eng.input_hw)
+    step_ms, step_min = timed_ms(lambda: eng.predict_arrays(frames), 10)
+    t0 = time.perf_counter()
+    resident = torch.from_numpy(frames).cuda()
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    with torch.inference_mode():
+        device_ms = cuda_ms(lambda: eng._step_device_resize(resident, spec), iters=5, warmup=1)
+        xg = eng._device_letterbox(resident, spec).permute(0, 3, 1, 2)
+        feeds = {eng.model.input_name: xg, **eng.model.params()}
+        fn = eng.model._fn
+        fn(feeds)
+        torch.cuda.synchronize()
+        host = {}
+        for label, call in (("planned", fn), ("unplanned", fn.unplanned)):
+            t0 = time.perf_counter()
+            call(feeds)
+            host[f"{label}_host_ms"] = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            host[f"{label}_synced_ms"] = (time.perf_counter() - t0) * 1e3
+        plan = fn.plan_for(feeds)
+        del xg, feeds
+    out["yolo_fp32"] = dict(
+        step_ms_median=step_ms, step_ms_min=step_min, frames_per_s=N / step_ms * 1e3,
+        upload_mb=frames.nbytes / 1e6, upload_ms=upload_ms, device_step_ms=device_ms,
+        plan_ops=len(plan.steps), folded_graph_nodes=len(eng.model.graph.nodes), **host,
+        num_valid_mean=float(res.num_valid.mean()), native=native_out,
+        kernels_off_score_max_delta=off_score,
+        kernels_off_box_max_delta_px=off_box)
+    log("onnx_yolo fp32 " + json.dumps(out["yolo_fp32"]))
+
+    # graph_precision: bf16 — model outputs and detections against fp32
+    eng16 = create_detector(cfg(graph_precision="bf16"))
+    assert eng16.compute_dtype == torch.bfloat16
+    res16 = step_launches(eng16, "onnx_yolo_bf16", path_kernels)
+    with torch.inference_mode():
+        got = eng16.model(eng16._device_letterbox(resident, spec), reduce_scores=True)
+        want = eng.model(eng._device_letterbox(resident, spec), reduce_scores=True)
+    conf_d = (got["conf"].float() - want["conf"]).abs().max().item()
+    box_med = (got["boxes_xyxy"].float() - want["boxes_xyxy"]).abs().median().item()
+    cls_agree = (got["cls"] == want["cls"]).float().mean().item()
+    hits = [matched(res16, res, i, 300, 0.05) for i in range(N)]
+    share = sum(h for h, _ in hits) / max(1, sum(k for _, k in hits))
+    step16, step16_min = timed_ms(lambda: eng16.predict_arrays(frames), 10)
+    out["yolo_bf16"] = dict(step_ms_median=step16, step_ms_min=step16_min,
+                            conf_max_delta_vs_fp32=conf_d, box_median_delta_vs_fp32_px=box_med,
+                            class_agreement_vs_fp32=cls_agree,
+                            detections_matched_share_vs_fp32=share,
+                            num_valid_mean=float(res16.num_valid.mean()))
+    log("onnx_yolo bf16 " + json.dumps(out["yolo_bf16"]))
+    del eng16, got, want
+
+    # a static-batch copy (batch 1 baked into every Reshape) through vmap
+    static_path = str(wdir / "yolov8n_seeded_static.onnx")
+    changed = static_batch_copy(path, static_path)
+    eng_s = create_detector(detector_config(model_path=static_path, precision="fp32",
+                                            confidence_threshold=ONNX_CONF))
+    assert not eng_s.model.dynamic_batch, "the static copy must serve through vmap"
+    with torch.inference_mode():
+        x = eng._device_letterbox(resident, spec)
+        a, b = eng_s.model(x, reduce_scores=True), eng.model(x, reduce_scores=True)
+        conf_s = (a["conf"] - b["conf"]).abs().max().item()
+        box_s = ((a["boxes_xyxy"] - b["boxes_xyxy"]).abs()
+                 / b["boxes_xyxy"].abs().clamp_min(1.0)).max().item()
+        cls_s = bool(torch.equal(a["cls"], b["cls"]))
+        vmap_ms = cuda_ms(lambda: eng_s.model(x, reduce_scores=True), iters=3, warmup=1)
+        direct_ms = cuda_ms(lambda: eng.model(x, reduce_scores=True), iters=3, warmup=1)
+    log(f"onnx static-batch copy ({changed} Reshape targets) through vmap against the dynamic "
+        f"graph: max |conf| delta {conf_s:.3g} (<= 1e-4), max relative box delta {box_s:.3g} "
+        f"(<= 1e-4), classes equal {cls_s}; {vmap_ms:.2f} ms against {direct_ms:.2f} ms")
+    assert conf_s <= 1e-4 and box_s <= 1e-4 and cls_s, "vmap over the static copy differs"
+    out["static_vmap"] = dict(reshape_targets=changed, conf_max_delta=conf_s,
+                              box_max_rel_delta=box_s, classes_equal=cls_s,
+                              model_ms=vmap_ms, dynamic_model_ms=direct_ms)
+    del eng_s, x, a, b, resident, eng
+    torch.cuda.empty_cache()
+
+    # a ResNet-50 classifier graph (B4 stretch) against the native engine
+    rpath = str(wdir / "resnet50_seeded.onnx")
+    resnet_to_onnx(resnet_params, rpath, 224)
+    reng = TorchResNetEngine(resnet_config(model_path=rpath, precision="fp32"))
+    assert reng.model.graph_backed and reng.compute_dtype == torch.float32
+    reng.classify(frames)
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.reset()
+    got = reng.classify(frames)
+    paths["onnx_resnet"] = launches = _cuda.LAUNCHES.snapshot()
+    log(f"onnx_resnet path launches {json.dumps(launches)}")
+    assert launches["letterbox"] == 1, "the classifier graph must run B4's stretch once a step"
+    nat = TorchResNetEngine(resnet_config(precision="fp32"), params=resnet_params)
+    top5, top1, score_d = top5_agreement(got, nat.classify(frames))
+    log(f"onnx ResNet-50 graph against the native engine, fp32: top-5 equal on {top5}/{N} "
+        f"frames, top-1 on {top1}/{N}, max |logit| delta {score_d:.3g}")
+    assert top5 == N, "the ResNet-50 graph's top-5 differs from the native engine's"
+    rstep, rstep_min = timed_ms(lambda: reng.classify(frames), 5)
+    out["resnet50_graph"] = dict(top5_equal_frames=top5, top1_equal_frames=top1,
+                                 logit_max_delta=score_d, step_ms_median=rstep,
+                                 step_ms_min=rstep_min)
+    del reng, nat
+    out["int_ops"] = check_int_ops()
+    torch.cuda.empty_cache()
+    return paths, out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the pipelines
 # ---------------------------------------------------------------------------
 
 
@@ -1294,6 +1676,10 @@ def main() -> int:
     paths.update(temporal_paths)
     log("temporal " + json.dumps(dict(temporal, card=card)))
     lap("temporal")
+    onnx_paths, onnx = run_onnx(params, frames, resnet_params)
+    paths.update(onnx_paths)
+    log("onnx " + json.dumps(dict(onnx, card=card)))
+    lap("onnx")
     torch.cuda.empty_cache()
 
     paths["pipeline"], pipe = run_pipeline(detector_config(

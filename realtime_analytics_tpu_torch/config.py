@@ -232,14 +232,13 @@ class DetectorConfig:
     pre_nms_topk: int = 512
     precision: str = "bf16"  # bf16 | fp32 | int8
     # Precision for GENERIC ONNX-GRAPH serving (unknown-layout user .onnx
-    # files compiled by models/onnx_jax.py). Independent of `precision`
+    # files served by models/onnx_torch.py). Independent of `precision`
     # because a foreign graph's numerics are the user's contract: default
-    # fp32 matches their ONNX Runtime baseline bit-for-bit-ish; "bf16"
-    # opts into mixed precision (bf16 MXU operands, fp32 accumulation,
-    # fp32 islands for norms/softmax/reductions) — the TPU analog of
-    # building an FP16 TensorRT engine from a user's fp32 ONNX export
-    # (reference detector.py:382-466). ~2x MXU rate, ~bf16-level (1e-2
-    # relative) output tolerance.
+    # fp32 matches their ONNX Runtime baseline; "bf16" opts into mixed
+    # precision (bf16 conv/matmul operands and outputs, fp32 for
+    # norms/softmax/reductions) — the analog of building an FP16 TensorRT
+    # engine from a user's fp32 ONNX export (reference detector.py:382-466),
+    # at a bf16-level (1e-2 relative) output tolerance.
     graph_precision: str = "fp32"  # fp32 | bf16
     mesh_shape: Optional[List[int]] = None  # e.g. [4, 2] for (dp, tp); None = 1 chip
     # Persistent XLA compile cache of the JAX package. The port compiles no

@@ -18,6 +18,16 @@ weights and activations, static scales calibrated at start-up on the
 engine's device) and ``tiling: true`` (SAHI-style tiles at native
 resolution through the same selected step, merged on the host).
 
+A ``.onnx`` file that matches no known checkpoint layout but holds a full
+graph is served as that graph (``models/onnx_graph_model.py``), as the
+reference's ONNX Runtime backend serves any export, in fp32 unless
+``graph_precision: bf16``. The YOLO engine then takes no host pick or host
+resize (a foreign graph has no stem to fold BGR and /255 into): full
+frames go through the device letterbox (kernel B4 on the card) into the
+graph; an end-to-end export (NMS inside the graph) takes a confidence
+top-k instead of the engine's NMS. The ResNet engine (and the temporal
+one) serve a classifier (clip) graph in their usual steps.
+
 PyTorch runs eagerly, so a "step" is a closure over the static letterbox
 geometry, not a compiled program. Batches are still padded to the
 configured buckets, so every call sees one of a few fixed shapes.
@@ -49,6 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import DetectorConfig, TEMPORAL_MODEL_TYPES
+from ..models.onnx_graph_model import graph_dtype, load_graph_fallback
 from ..models.resnet import build_resnet, normalize_imagenet, variant_from_model_path
 from ..models.weights import (
     calibrate_int8_activations,
@@ -160,42 +171,54 @@ class TorchYoloEngine(BaseDetector):
             raise NotImplementedError("detector.mesh_shape (multi-device)" + _NOT_PORTED)
         self.device = pick_device(config)
         fp32_means_fp32(self.device)
-        self.model = build_yolo(
-            config.model_type if config.model_type in ("yolov5", "yolov8") else "yolov8",
-            size_from_model_path(config.model_path), config.num_classes,
-        )
+        model_type = config.model_type if config.model_type in ("yolov5", "yolov8") \
+            else "yolov8"
+        self.model = build_yolo(model_type, size_from_model_path(config.model_path),
+                                config.num_classes)
         self.input_hw: Tuple[int, int] = config.resolved_input_size
         self.compute_dtype = compute_dtype_of(config)
         if params is None:
             params = load_yolo_checkpoint(self.model, config.model_path)
+        graph = None
         if params is None:
-            logger.warning(
-                "No loadable weights at '%s' — using a seeded random init "
-                "(seed 0). Detections will be meaningless until a checkpoint "
-                "is provided.", config.model_path,
-            )
-            self.model.init_params(torch.Generator().manual_seed(0))
-        if config.precision == "int8":
-            self._init_int8(params)
+            graph = load_graph_fallback(
+                config.model_path, "yolo", model_type=model_type,
+                input_hw=tuple(self.input_hw),
+                compute_dtype=graph_dtype(config.graph_precision))
+        self._graph_backed = graph is not None
+        if graph is not None:
+            self._init_graph(graph)
         else:
-            if params is not None:
-                params_from_jax(self.model, params)
-            self.model.to(device=self.device, dtype=self.compute_dtype,
-                          memory_format=torch.channels_last).eval()
+            if params is None:
+                logger.warning(
+                    "No loadable weights at '%s' — using a seeded random init "
+                    "(seed 0). Detections will be meaningless until a checkpoint "
+                    "is provided.", config.model_path,
+                )
+                self.model.init_params(torch.Generator().manual_seed(0))
+            if config.precision == "int8":
+                self._init_int8(params)
+            else:
+                if params is not None:
+                    params_from_jax(self.model, params)
+                self.model.to(device=self.device, dtype=self.compute_dtype,
+                              memory_format=torch.channels_last).eval()
         if config.s2d_backbone != "off":
             logger.info(
                 "detector.s2d_backbone=%s is a TPU layout tactic of the JAX "
                 "package; it is a no-op on the PyTorch engine",
                 config.s2d_backbone,
             )
-        self.model.pallas_decode = "off" if config.pallas_decode == "off" else "on"
-        self.model.pallas_stem = "off" if config.pallas_stem == "off" else "on"
         self._nms_gather = "torch" if config.pallas_gather == "off" else "kernel"
-        self._w0_folded = self._fold_stem()
-        self._stem_folded = self._stem_plain = None
-        if self.model.stem_nodes_ok():
-            self._stem_folded = self.model.stem_weights(self.compute_dtype, self._w0_folded)
-            self._stem_plain = self.model.stem_weights(self.compute_dtype)
+        self._w0_folded = self._stem_folded = self._stem_plain = None
+        if not self._graph_backed:
+            self.model.pallas_decode = "off" if config.pallas_decode == "off" else "on"
+            self.model.pallas_stem = "off" if config.pallas_stem == "off" else "on"
+            self._w0_folded = self._fold_stem()
+            if self.model.stem_nodes_ok():
+                self._stem_folded = self.model.stem_weights(self.compute_dtype,
+                                                            self._w0_folded)
+                self._stem_plain = self.model.stem_weights(self.compute_dtype)
         self._class_mask = None
         if config.classes:
             mask = torch.zeros(config.num_classes, dtype=torch.bool)
@@ -204,6 +227,20 @@ class TorchYoloEngine(BaseDetector):
         self._bucket_cost_ms: Dict[Tuple[int, int], Dict[int, float]] = {}
         self.class_agnostic_nms = True  # reference NMS is class-agnostic
         self.last_infer_ms: float = 0.0
+
+    def _init_graph(self, graph) -> None:
+        """A foreign ONNX graph as the model (the JAX engine's graph
+        branch): the compute dtype is the graph's (``graph_precision``; fp32
+        by default, the device letterbox feeding it included); no int8 (a
+        warning), no stem fold; params cast to bf16 under the bf16 policy,
+        quantization scales exempt."""
+        self.model = graph
+        self.compute_dtype = graph.compute_dtype
+        if self.config.precision == "int8":
+            logger.warning(
+                "precision: int8 is not supported for generic ONNX graph models — "
+                "serving the graph at graph_precision (%s)", self.config.graph_precision)
+        to_graph_device(graph, self.device)
 
     def _init_int8(self, params: Optional[Dict]) -> None:
         """Native int8, as the JAX engine's int8 branch: quantise the float
@@ -261,6 +298,10 @@ class TorchYoloEngine(BaseDetector):
         pixels cross the link (0.7 MB instead of 6 MB per 1080p frame);
         fractional ratios take the host cv2 letterbox resize when
         ``host_resize`` is active."""
+        if self._graph_backed:
+            # the selected step folds BGR and /255 into the YOLO stem conv;
+            # a foreign graph has no known stem: the device letterbox
+            return frames, False
         spec = letterbox_spec(src_hw, self.input_hw)
         if self.config.host_select != "off":
             geom = self._select_geometry(spec)
@@ -300,7 +341,9 @@ class TorchYoloEngine(BaseDetector):
     def _final_select(self, out):
         """Model output -> padded per-image (boxes, scores, classes,
         num_valid) through the class mask, the confidence threshold and
-        batched NMS."""
+        batched NMS. An end-to-end graph export already selected its boxes
+        with its own per-class NMS (the engine's class-agnostic NMS would
+        cross-suppress boxes it keeps), so it takes a confidence top-k."""
         cfg = self.config
         boxes = out["boxes_xyxy"].to(torch.float32)
         conf = out["conf"]
@@ -308,6 +351,15 @@ class TorchYoloEngine(BaseDetector):
         if self._class_mask is not None:
             conf = torch.where(self._class_mask[cls.long()], conf, 0.0)
         conf = torch.where(conf >= cfg.confidence_threshold, conf, 0.0)
+        if getattr(self.model, "end2end", False):
+            k = min(cfg.max_detections, conf.shape[1])
+            s, idx = torch.sort(conf, dim=1, descending=True, stable=True)  # ties: lower
+            s, idx = s[:, :k], idx[:, :k]  # index first, as lax.top_k
+            b = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+            c = torch.gather(cls, 1, idx)
+            n = (s > 0).sum(dim=1).to(torch.int32)
+            pad = cfg.max_detections - k  # keep the engine's fixed width
+            return F.pad(b, (0, 0, 0, pad)), F.pad(s, (0, pad)), F.pad(c, (0, pad)), n
         return batched_nms(
             boxes, conf, cls,
             iou_threshold=cfg.iou_threshold,
@@ -442,6 +494,8 @@ class TorchYoloEngine(BaseDetector):
                        shape: Tuple[int, int]) -> BatchResult:
         """Batch-predict same-resolution frames through the cheapest path
         (host pixel pick > host letterbox resize > device letterbox)."""
+        if self._graph_backed:  # no stem to fold BGR and /255 into
+            return self._predict_prepared(np.stack(frames_list), shape, False)
         spec = letterbox_spec(shape, self.input_hw)
         geom = self._select_geometry(spec) if self.config.host_select != "off" else None
         if geom is not None:
@@ -475,7 +529,8 @@ class TorchYoloEngine(BaseDetector):
         grid = tile_grid(shape, self.input_hw, self.config.tiling_overlap)
         n_tiles, nf = len(grid), len(frames_list)
         spec = letterbox_spec((th, tw), self.input_hw)
-        geom = self._select_geometry(spec) if self.config.host_select != "off" else None
+        geom = (self._select_geometry(spec)
+                if self.config.host_select != "off" and not self._graph_backed else None)
         selected = geom == (1, 0, 1, 0)
         # one cap-sized buffer bounds the host's transient to one chunk
         cap = max(self.config.resolved_buckets)
@@ -543,6 +598,15 @@ def compute_dtype_of(config: DetectorConfig) -> torch.dtype:
     return torch.bfloat16
 
 
+def to_graph_device(graph, device: torch.device) -> None:
+    """A graph model's params onto ``device``, cast to its compute dtype
+    under the bf16 policy (quantization scales exempt)."""
+    graph.to(device)
+    if graph.compute_dtype != torch.float32:
+        graph.cast_params(graph.compute_dtype)
+    graph.eval()
+
+
 def fp32_means_fp32(device: torch.device) -> None:
     """On the card, turn TF32 off: cuDNN convolutions default to it."""
     if device.type == "cuda":
@@ -608,15 +672,24 @@ class TorchResNetEngine(BaseDetector):
         self.compute_dtype = compute_dtype_of(config)
         if params is None:
             params = load_resnet_checkpoint(self.model, config.model_path)
-        if params is None:
-            logger.warning(
-                "No loadable ResNet weights at '%s' — using seeded random "
-                "weights (seed 0).", config.model_path,
-            )
-            params = resnet_synthetic_params(self.model, seed=0)
-        resnet_params_from_jax(self.model, params)
-        self.model.to(device=self.device, dtype=self.compute_dtype,
-                      memory_format=torch.channels_last).eval()
+        graph = None
+        if params is None:  # a classifier graph (reference detector.py:1004-1134)
+            graph = load_graph_fallback(
+                config.model_path, "classifier", input_hw=tuple(self.input_hw),
+                compute_dtype=graph_dtype(config.graph_precision))
+        if graph is not None:
+            self.model, self.compute_dtype = graph, graph.compute_dtype
+            to_graph_device(graph, self.device)
+        else:
+            if params is None:
+                logger.warning(
+                    "No loadable ResNet weights at '%s' — using seeded random "
+                    "weights (seed 0).", config.model_path,
+                )
+                params = resnet_synthetic_params(self.model, seed=0)
+            resnet_params_from_jax(self.model, params)
+            self.model.to(device=self.device, dtype=self.compute_dtype,
+                          memory_format=torch.channels_last).eval()
         self._bucket_cost_ms: Dict[Tuple[int, int], Dict[int, float]] = {}
         self.last_infer_ms = 0.0
 

@@ -18,6 +18,9 @@ Preprocessing per family: CNN-LSTM/ConvGRU use ImageNet mean/std at
 frames are stretched on the host; otherwise the device step stretches the
 full frames: kernel B4 on the card unless ``pallas_preprocess: off``, else
 the JAX package's unrounded bilinear resize.
+
+A ``.onnx`` clip model that matches no known layout is served as its own
+graph (``models/onnx_graph_model.py``) in the same clip step.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from ..config import ConfigError, DetectorConfig
+from ..models.onnx_graph_model import graph_dtype, load_graph_fallback
 from ..models.resnet import IMAGENET_MEAN, IMAGENET_STD
 from ..models.temporal import build_temporal
 from ..models.weights import (
@@ -49,6 +53,7 @@ from .detector import (
     fp32_means_fp32,
     pick_device,
     stretch_unit_rgb,
+    to_graph_device,
 )
 
 logger = logging.getLogger(__name__)
@@ -81,14 +86,24 @@ class TorchTemporalEngine(BaseDetector):
         self._std = torch.tensor(std, dtype=torch.float32, device=self.device)
         if params is None:
             params = load_temporal_checkpoint(self.model, config.model_path)
-        if params is None:
-            logger.warning(
-                "No loadable temporal weights at '%s' — using seeded random "
-                "weights (seed 0).", config.model_path,
-            )
-            params = temporal_synthetic_params(self.model, seed=0)
-        temporal_params_from_jax(self.model, params)
-        self.model.to(device=self.device, dtype=self.compute_dtype).eval()
+        graph = None
+        if params is None:  # a clip graph (reference temporal_detector.py:179-319)
+            graph = load_graph_fallback(
+                config.model_path, "temporal", model_type=config.model_type,
+                t_len=config.sequence_length, input_hw=tuple(self.input_hw),
+                compute_dtype=graph_dtype(config.graph_precision))
+        if graph is not None:
+            self.model, self.compute_dtype = graph, graph.compute_dtype
+            to_graph_device(graph, self.device)
+        else:
+            if params is None:
+                logger.warning(
+                    "No loadable temporal weights at '%s' — using seeded random "
+                    "weights (seed 0).", config.model_path,
+                )
+                params = temporal_synthetic_params(self.model, seed=0)
+            temporal_params_from_jax(self.model, params)
+            self.model.to(device=self.device, dtype=self.compute_dtype).eval()
         self.sequence_step = max(
             1, int(config.sequence_length * (1.0 - config.temporal_overlap))
         )

@@ -22,10 +22,12 @@ per-output-channel symmetric int8 weights in the tree, then static
 activation scales baked by one eager pass of the module.
 
 ``load_yolo_checkpoint`` reads ``.pt``/``.pth`` (raw state dict or an
-Ultralytics checkpoint dict), a flat ``.npz`` with the same key names, or
-a native-pytree ``.npz``; a weights-``.onnx`` raises NotImplementedError
-until the ONNX reader is ported (ROADMAP.md). Anything unreadable -> None
-(the engine then uses a seeded random init, loudly).
+Ultralytics checkpoint dict), a flat ``.npz`` with the same key names, a
+native-pytree ``.npz``, or a weights-``.onnx`` (a torch export keeps the
+state-dict names in its initializers; ``onnx_lite.read_onnx_initializers``
+reads them). Anything unreadable or of another layout -> None (the engine
+then serves the file's own ONNX graph, if it has one, or a seeded random
+init, loudly).
 
 ResNet and the temporal models follow the same pattern:
 ``resnet_params_from_jax`` / ``temporal_params_from_jax`` load a JAX tree,
@@ -324,8 +326,6 @@ def yolo_params_from_state_dict(
 def load_yolo_checkpoint(model: YoloModel, path: str) -> Optional[Dict]:
     """Best-effort load of a YOLO checkpoint file into a params tree.
     Returns None when the file is missing, unreadable or of another layout."""
-    if str(path).endswith(".onnx"):
-        raise _onnx_not_ported()
     try:
         sd = _read_state_dict(path)
     except Exception as exc:  # noqa: BLE001 — any unreadable file -> None
@@ -354,6 +354,11 @@ def _read_state_dict(path: str) -> Optional[Mapping[str, np.ndarray]]:
             # native params tree (e.g. saved by the JAX package's trainer)
             return {"__pytree__": flat["__pytree__"]}
         return flat
+    if path.endswith(".onnx"):
+        from .onnx_lite import read_onnx_initializers
+
+        return {k: v.astype(np.float32) if v.dtype == np.float16 else v
+                for k, v in read_onnx_initializers(path).items()}
     obj = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(obj, dict):
         for key in ("state_dict", "model"):
@@ -376,14 +381,6 @@ def _check_tree(model: nn.Module, tree, path: str) -> Optional[Dict]:
         logger.warning("pytree checkpoint %s does not match the model", path)
         return None
     return tree
-
-
-def _onnx_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "weights-.onnx checkpoints need the ONNX initializer reader, "
-        "which is not ported to the PyTorch package yet (ROADMAP.md); "
-        "convert to .pt or a flat .npz"
-    )
 
 
 def _seeded_tree(model: nn.Module, seed: int) -> Dict:
@@ -468,10 +465,9 @@ def resnet_params_from_state_dict(model: ResNetModel, sd: Mapping[str, np.ndarra
 
 
 def load_resnet_checkpoint(model: ResNetModel, path: str) -> Optional[Dict]:
-    """A torchvision-named state dict (.pt / flat .npz) or a native
-    params-tree .npz. Anything unreadable or of another layout -> None."""
-    if str(path).endswith(".onnx"):
-        raise _onnx_not_ported()
+    """A torchvision-named state dict (.pt / flat .npz / weights-.onnx) or a
+    native params-tree .npz. Anything unreadable or of another layout ->
+    None."""
     try:
         sd = _read_state_dict(path)
         if sd is None:
@@ -561,10 +557,9 @@ def temporal_synthetic_params(model: nn.Module, seed: int = 0) -> Dict:
 
 
 def load_temporal_checkpoint(model: nn.Module, path: str) -> Optional[Dict]:
-    """A native params-tree .npz, a torch-named flat .npz, or a .pt state
-    dict. Anything unreadable or of another layout -> None."""
-    if str(path).endswith(".onnx"):
-        raise _onnx_not_ported()
+    """A native params-tree .npz, or a torch-named state dict (flat .npz,
+    .pt or weights-.onnx). Anything unreadable or of another layout ->
+    None."""
     try:
         sd = _read_state_dict(path)
         if sd is None:

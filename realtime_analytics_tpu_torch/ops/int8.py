@@ -131,3 +131,31 @@ def conv2d_int8(x: torch.Tensor, q: QuantConv, b: Optional[torch.Tensor], cout: 
     if b is not None:
         out = out + b.to(torch.float32)
     return out.to(x.dtype).permute(0, 3, 1, 2)
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The exact int32 product of int8 operands, numpy ``matmul``'s
+    broadcasting for rank >= 2: a [..., M, K] @ b [..., K, N] -> [..., M, N]
+    int32, through ``torch._int_mm`` (rows, K and N zero-padded as
+    ``pack_int8_weight`` and ``im2col_int8`` pad; a zero adds nothing). The
+    ONNX graph path's ``MatMulInteger``, ``ConvInteger`` and ``QLinear*``."""
+    m, k = a.shape[-2], a.shape[-1]
+    n = b.shape[-1]
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    if b.ndim == 2:  # one right operand: fold a's batch into its rows
+        rows = a.reshape(-1, k)
+        mats = [(rows, b)]
+    else:
+        a_b = a.expand(*batch, m, k).reshape(-1, m, k)
+        b_b = b.expand(*batch, k, n).reshape(-1, k, n)
+        mats = [(a_b[i], b_b[i]) for i in range(a_b.shape[0])]
+    kp, np_ = _round_up(k, ALIGN), _round_up(n, ALIGN)
+    outs = []
+    for lhs, rhs in mats:
+        rows = lhs.shape[0]
+        lp = F.pad(lhs, (0, kp - k, 0, max(rows, MIN_ROWS) - rows))
+        rp = F.pad(rhs.t(), (0, kp - k, 0, np_ - n))  # [Np, Kp]: B's column-major view
+        outs.append(torch._int_mm(lp, rp.t())[:rows, :n])
+    if b.ndim == 2:
+        return outs[0].reshape(*a.shape[:-2], m, n)
+    return torch.stack(outs).reshape(*batch, m, n)

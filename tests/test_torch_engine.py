@@ -170,7 +170,6 @@ def test_device_rules():
     (dict(model_type="cnn_lstm", mesh_shape=[2, 1]), "temporal"),
     (dict(model_path="model.rvae"), "rvae"),
     (dict(mesh_shape=[2, 1]), "mesh_shape"),
-    (dict(model_path="weights.onnx"), "onnx"),
 ])
 def test_unported_routes_raise(over, match):
     cfg = DetectorConfig(**{**dict(device="cpu", warmup=False,

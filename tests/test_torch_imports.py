@@ -31,7 +31,12 @@ print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 30, names
 assert {"realtime_analytics_tpu_torch.ops.int8",
-        "realtime_analytics_tpu_torch.ops.tiling"} <= set(names), names
+        "realtime_analytics_tpu_torch.ops.tiling",
+        "realtime_analytics_tpu_torch.models.onnx_lite",
+        "realtime_analytics_tpu_torch.models.onnx_exec",
+        "realtime_analytics_tpu_torch.models.onnx_torch",
+        "realtime_analytics_tpu_torch.models.onnx_graph_model",
+        "realtime_analytics_tpu_torch.models.onnx_export"} <= set(names), names
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)

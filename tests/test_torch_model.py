@@ -122,8 +122,9 @@ def test_checkpoint_formats_load_the_same_tree(tmp_path, fmt):
     for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want),
                     strict=True):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_yolo_checkpoint(model, str(tmp_path / "w.onnx"))
+    # a weights-.onnx reads its initializers; a file that is not there is
+    # no checkpoint (tests/test_torch_onnx_lite.py holds real ones)
+    assert load_yolo_checkpoint(model, str(tmp_path / "w.onnx")) is None
 
 
 def test_synthetic_params_fit_the_module_and_are_seeded():

@@ -119,8 +119,9 @@ def test_checkpoint_carriers(tmp_path, carrier):
 
 def test_loader_refuses_onnx_and_survives_a_bad_file(tmp_path):
     model = build_resnet("resnet18", 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_resnet_checkpoint(model, str(tmp_path / "w.onnx"))
+    # an unreadable weights-.onnx is no checkpoint (real ones:
+    # tests/test_torch_onnx_lite.py)
+    assert load_resnet_checkpoint(model, str(tmp_path / "w.onnx")) is None
     bad = tmp_path / "other.npz"
     np.savez(bad, __pytree__=np.array({"stem": {}}, dtype=object))
     assert load_resnet_checkpoint(model, str(bad)) is None

@@ -8,8 +8,7 @@
    committed tests/data/golden_trajectory.json with the tolerances of
    tests/test_golden_trajectory.py: ids, classes, age and hits exact, conf
    atol 6e-3, boxes atol 0.75. The weights are the same synthetic yolov8n
-   state dict, carried as a flat .npz (the port does not read
-   weights-.onnx yet).
+   state dict, carried as a flat .npz.
 2. A short ``AnalyticsPipeline.run_for`` with two synthetic streams: frames
    flow on both and the pipeline shuts down cleanly.
 3. The YOLO device-resize step (no host pick, no host resize) at a
