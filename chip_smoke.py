@@ -38,7 +38,9 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
    engine with the kernels off (bf16 model outputs within the repo's bf16
    fidelity bound; bf16 detections with B1 + B2 off and fp32 detections
    with every kernel off, frame by frame); step time, frames/s and peak
-   memory;
+   memory; the host calls that wait for the card in a step
+   (``profile_step.py``'s trace) with NMS's keep pass as the fixpoint
+   sweeps and as B6;
 5. the YOLO device-resize step: the same engine with ``host_resize: off``
    on 32 synthetic 1280x720 frames (full frames -> B4 letterbox -> forward),
    held against ``pallas_preprocess: off``;
@@ -83,19 +85,29 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
     ``ConvInteger``, ``MatMulInteger``, ``QLinearConv``, ``QLinearMatMul``,
     ``DequantizeLinear`` on single-node graphs, bit-equal to the numpy
     oracle;
-12. the pipelines: ``AnalyticsPipeline`` with 32 pooled ``synthetic://``
+12. serving artifacts ("artifact"): the main path, the device-resize
+    step, int8, YOLOv5n, ResNet-50 ``full``, CNN-LSTM ``full`` and the
+    YOLOv8n ONNX graph, each exported on the card into a ``.rvae`` and
+    served from the file alone through ``create_detector``: results equal
+    to the live engine's bit for bit; one replayed step's launches by path
+    (``rvae_*``: B1 twice, B2, B3 and B6 once on the main path; B4 once on
+    the full-frame steps); export seconds, artifact bytes, startup (load +
+    warmup against building the live engine from its checkpoint + warmup)
+    and step time against the live engine's;
+13. the pipelines: ``AnalyticsPipeline`` with 32 pooled ``synthetic://``
     1080p streams at 25 fps on YOLOv8n for about 15 s, then 8 such streams
     on ResNet-50 with ``host_resize: off`` for about 5 s;
-13. the ``{"kernels": [...]}`` line, the card line, and last
+14. the ``{"kernels": [...]}`` line, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
-Every path of phases 4-12 runs with the launch counters set to 0 just
+Every path of phases 4-13 runs with the launch counters set to 0 just
 before and read just after; each fails unless the kernels it runs were
-launched (the YOLO v8 steps: ``decode_v8`` exactly once a step) and, on
-the int8, v5 and ONNX paths, unless the kernels those paths skip were not. A
-kernel's ``launches`` in the kernels line is its count on one step of the
-path its row times (the main path for B1-B3, the device-resize step for
-B4), and ``launches_by_path`` holds each path's own count. Any failure
+launched (the YOLO v8 steps: ``decode_v8`` exactly once a step; every YOLO
+step: ``nms_keep`` once) and, on the int8, v5, ONNX and artifact paths,
+unless the kernels those paths skip were not. A kernel's ``launches`` in
+the kernels line is its count on one step of the path its row times (the
+main path for B1-B3 and B6, the device-resize step for B4), and
+``launches_by_path`` holds each path's own count. Any failure
 exits non-zero without the last line; so does a machine with no visible
 CUDA card, or a directory without the package.
 """
@@ -103,6 +115,7 @@ CUDA card, or a directory without the package.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -245,13 +258,16 @@ def check_gather(gen):
         lib_ms = cuda_ms(library, iters=200)
         nbytes = N * k * 8 + 2 * N * k * p * 4  # idx + gathered rows + output
         b_ms, b_by = bound(nbytes, 0.0, torch.float32)
-        # the two parts of ms apart: the kernel on the card, the call on the host
-        host = host_us(dict(kernel=lambda: row_gather(payload, idx), library=library))
+        # the two parts of ms apart: the kernel on the card, the call on the
+        # host, also through the registered op (an exported step's route)
+        host = host_us(dict(kernel=lambda: row_gather(payload, idx), library=library,
+                            op=lambda: torch.ops.rva.row_gather(payload, idx)))
         rows.append(dict(shape=[N, m, p, k], max_abs_err=0.0, bit_exact=exact,
                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                          device_us=graph_us(lambda: row_gather(payload, idx)),
-                         host_us=host["kernel"], library_device_us=graph_us(library),
+                         host_us=host["kernel"], op_host_us=host["op"],
+                         library_device_us=graph_us(library),
                          library_host_us=host["library"]))
     log("B1 " + json.dumps(dict(rows=rows, card=CARD)))
     first = rows[0]
@@ -356,9 +372,13 @@ def check_decode(gen):
         parts = [decode_v8_level(b, c, stride=s) for (b, c), s in zip(levels, strides)]
         return [torch.cat(p, dim=1) for p in zip(*parts)]
 
+    def run_op():  # the registered op, as an exported step calls it
+        return torch.ops.rva.decode_v8_levels([b for b, _ in levels], [c for _, c in levels],
+                                              list(strides))
+
     ms, plain_ms = cuda_ms(run), cuda_ms(run_plain)
     by_level_ms = cuda_ms(run_by_level)
-    host = host_us(dict(kernel=run, by_level=run_by_level))
+    host = host_us(dict(kernel=run, by_level=run_by_level, op=run_op))
     anchors = sum(b.shape[1] * b.shape[2] for b, _ in levels) * N
     nbytes = anchors * ((64 + 80) * 2 + (4 + 1 + 1) * 4)
     flops = anchors * 480.0  # 4 x 16-bin max/exp/num/den + 80-way max + box
@@ -370,8 +390,66 @@ def check_decode(gen):
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
     log("B2 " + json.dumps(dict(
         row, anchors=anchors, bytes=nbytes, launches_per_head=1, by_level_ms=by_level_ms,
-        device_us=graph_us(run), host_us=host["kernel"], by_level_host_us=host["by_level"],
-        cases=cases, card=CARD)))
+        device_us=graph_us(run), host_us=host["kernel"], op_host_us=host["op"],
+        by_level_host_us=host["by_level"], cases=cases, card=CARD)))
+    return row
+
+
+def check_nms_keep(gen):
+    """B6 against its plain version (the fixpoint sweeps): keep bit-equal
+    at the main path's shape (N images, K = 512 candidates), at K = 1024,
+    at K = 8400 (every anchor of a 640 input: the rows in the scratch
+    buffer, nine keep words a lane), all valid, none valid, and on a chain where every rank overlaps the one
+    before it (the sweeps' worst case: one more sweep a rank)."""
+    from realtime_analytics_tpu_torch.ops.nms import nms_keep, nms_keep_plain
+
+    tri = {}
+
+    def overlaps(n, k, p, valid_p):
+        if k not in tri:
+            tri[k] = torch.ones(k, k, dtype=torch.bool, device="cuda").tril(-1)
+        s = torch.rand(n, k, k, generator=gen, device="cuda") < p
+        valid = torch.rand(n, k, generator=gen, device="cuda") < valid_p
+        return (s & tri[k] & valid[:, :, None] & valid[:, None, :]).contiguous(), valid
+
+    def chain(n, k):
+        ov = torch.zeros(n, k, k, dtype=torch.bool, device="cuda")
+        ov[:, torch.arange(1, k), torch.arange(k - 1)] = True
+        return ov, torch.ones(n, k, dtype=torch.bool, device="cuda")
+
+    # p = 0.02: a candidate overlaps about 5 better-ranked ones on average
+    cases = {"main": overlaps(N, 512, 0.02, 0.95), "k1024": overlaps(N, 1024, 0.01, 0.95),
+             "k8400": overlaps(2, 8400, 0.001, 0.95),
+             "all_valid": overlaps(N, 512, 0.02, 1.0), "none_valid": overlaps(N, 512, 0.02, 0.0),
+             "chain": chain(N, 512)}
+    kept = {}
+    for name, (ov, valid) in cases.items():
+        got, want = nms_keep(ov, valid), nms_keep_plain(ov, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"B6 {name}: keep differs from the fixpoint"
+        kept[name] = int(got.sum())
+    ov, valid = cases["main"]
+    k = valid.shape[1]
+    ms = cuda_ms(lambda: nms_keep(ov, valid), iters=200)
+    plain_ms = cuda_ms(lambda: nms_keep_plain(ov, valid), iters=20)
+    chain_ms = cuda_ms(lambda: nms_keep(*cases["chain"]), iters=50)
+    chain_plain_ms = cuda_ms(lambda: nms_keep_plain(*cases["chain"]), iters=2, warmup=1)
+    k8400_ms = cuda_ms(lambda: nms_keep(*cases["k8400"]), iters=20)
+    host = host_us(dict(kernel=lambda: nms_keep(ov, valid),
+                        op=lambda: torch.ops.rva.nms_keep(ov, valid)), calls=200)
+    # what the function reads: the matrix's strict lower triangle (set only
+    # for j < i; the kernel packs no word right of the diagonal), valid; and
+    # keep, written
+    nbytes = N * k * (k - 1) // 2 + 2 * N * k
+    b_ms, b_by = bound(nbytes, 0.0, torch.float32)
+    row = dict(name="nms_keep", route="cuda", source="realtime_analytics_tpu_torch/csrc/nms.cu",
+               replaces="realtime_analytics_tpu/ops/nms.py:143", max_abs_err=0.0, ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log("B6 " + json.dumps(dict(
+        row, shape=[N, k, k], bytes=nbytes, bit_equal=list(cases), kept=kept,
+        device_us=graph_us(lambda: nms_keep(ov, valid)), host_us=host["kernel"],
+        op_host_us=host["op"], chain_ms=chain_ms, chain_plain_ms=chain_plain_ms,
+        k8400_ms=k8400_ms, card=CARD)))
     return row
 
 
@@ -572,6 +650,12 @@ def require_launched(path: str, launches, names) -> None:
         assert launches[name] > 0, f"kernel {name} was not launched on the {path}"
 
 
+def require_counts(path: str, launches, want) -> None:
+    """Each kernel of ``want`` launched exactly that many times on the path."""
+    for name, n in want.items():
+        assert launches[name] == n, f"{path}: {name} launched {launches[name]} times, not {n}"
+
+
 def detector_config(**over):
     from realtime_analytics_tpu_torch.config import DetectorConfig
 
@@ -635,8 +719,10 @@ def run_engine(params, frames):
     res = eng.predict_arrays(frames)  # THE main-path run
     launches = _cuda.LAUNCHES.snapshot()
     log(f"main path launches {json.dumps(launches)}")
-    require_launched("main path", launches, ("row_gather", "decode_v8", "fused_stem"))
+    require_launched("main path", launches, ("row_gather", "decode_v8", "fused_stem",
+                                             "nms_keep"))
     assert launches["decode_v8"] == 1, "the head must decode in one launch a step"
+    assert launches["nms_keep"] == 1, "NMS's keep pass must be one launch a step"
     b = res.boxes_xyxy
     assert b.shape == (N, 300, 4) and np.isfinite(b).all() and np.isfinite(res.scores).all()
     summary_res = res
@@ -679,7 +765,8 @@ def run_engine(params, frames):
     torch.cuda.reset_peak_memory_stats()
     step_ms, step_min = timed_ms(lambda: eng.predict_arrays(frames), 25)
     mem = torch.cuda.max_memory_allocated() / 2**20
-    summary = dict(step_ms_median=step_ms, step_ms_min=step_min,
+    waits = host_waits(eng, frames)
+    summary = dict(step_ms_median=step_ms, step_ms_min=step_min, host_waits_per_step=waits,
                    frames_per_s=N / step_ms * 1e3, max_memory_allocated_mib=mem,
                    bf16_conf_max_delta=conf_d, bf16_box_median_delta_px=box_med,
                    bf16_class_agreement=cls_agree, bf16_all_off_frames_equal=all_off,
@@ -690,6 +777,27 @@ def run_engine(params, frames):
 # ---------------------------------------------------------------------------
 # phases 6-8: native int8, YOLOv5, tiled inference
 # ---------------------------------------------------------------------------
+
+
+def host_waits(eng, frames):
+    """Host calls that wait for the card, a main step (``profile_step.py``'s
+    trace over 2 steps): with NMS's keep pass as the fixpoint sweeps (the
+    step before B6: a wait a sweep) and as B6."""
+    from realtime_analytics_tpu_torch.ops import nms
+    from realtime_analytics_tpu_torch.scripts.profile_step import trace
+
+    kernel = nms.nms_keep
+    nms.nms_keep = nms.nms_keep_plain
+    try:
+        sweeps = trace(eng, frames, 2)["host_waits_per_step"]
+    finally:
+        nms.nms_keep = kernel
+    b6 = trace(eng, frames, 2)["host_waits_per_step"]
+    out = dict(sweeps=sweeps, sweeps_total=sum(sweeps.values()), b6=b6,
+               b6_total=sum(b6.values()))
+    log("main step host waits " + json.dumps(dict(out, card=CARD)))
+    assert out["b6_total"] < out["sweeps_total"], "B6 must remove the sweeps' host waits"
+    return out
 
 
 def iou(a, b) -> float:
@@ -793,8 +901,9 @@ def run_int8(params, frames, bf16_res, bf16_summary):
     res = eng.predict_arrays(frames)
     launches = _cuda.LAUNCHES.snapshot()
     log(f"int8 path launches {json.dumps(launches)}")
-    assert (launches["decode_v8"], launches["row_gather"], launches["fused_stem"]) == (1, 2, 0), \
-        "int8 step: B2 once, B1 twice, B3 never"
+    assert (launches["decode_v8"], launches["row_gather"], launches["fused_stem"],
+            launches["nms_keep"]) == (1, 2, 0, 1), \
+        "int8 step: B2 once, B1 twice, B3 never, B6 once"
     assert np.isfinite(res.boxes_xyxy).all() and (res.num_valid > 0).all()
     shares = []
     for i in range(N):
@@ -840,8 +949,9 @@ def run_yolov5(frames):
     res = eng.predict_arrays(frames)
     launches = _cuda.LAUNCHES.snapshot()
     log(f"yolov5 path launches {json.dumps(launches)}")
-    assert (launches["row_gather"], launches["fused_stem"], launches["decode_v8"]) == (2, 0, 0), \
-        "v5 step: B1 twice, no B2 (a v5 head) and no B3 (a k6 stem)"
+    assert (launches["row_gather"], launches["fused_stem"], launches["decode_v8"],
+            launches["nms_keep"]) == (2, 0, 0, 1), \
+        "v5 step: B1 twice, B6 once, no B2 (a v5 head) and no B3 (a k6 stem)"
     assert res.boxes_xyxy.shape == (N, 300, 4) and np.isfinite(res.boxes_xyxy).all()
     assert (res.num_valid > 0).all()
     fp32 = TorchYoloEngine(detector_config(model_type="yolov5", precision="fp32"),
@@ -920,8 +1030,8 @@ def run_tiled(params, frames):
     assert n_tiles == 8 * len(frames) and len(tile_steps) == -(-n_tiles // N)
     assert len(steps) == len(tile_steps) + 1, "the whole-frame pass is one more step"
     for c in (c for _, _, c in steps):
-        assert (c["fused_stem"], c["decode_v8"], c["row_gather"]) == (1, 1, 2), \
-            f"a tiled step did not launch B1-B3: {c}"
+        assert (c["fused_stem"], c["decode_v8"], c["row_gather"], c["nms_keep"]) == (1, 1, 2, 1), \
+            f"a tiled step did not launch B1-B3 and B6: {c}"
     assert all(isinstance(d, list) for d in dets) and sum(len(d) for d in dets) > 0
 
     off = dict(pallas_gather="off", pallas_decode="off", pallas_stem="off")
@@ -987,8 +1097,9 @@ def run_device_resize(params, frames):
     launches = _cuda.LAUNCHES.snapshot()
     log(f"device-resize path launches {json.dumps(launches)}")
     require_launched("device-resize path", launches,
-                     ("letterbox", "fused_stem", "decode_v8", "row_gather"))
+                     ("letterbox", "fused_stem", "decode_v8", "row_gather", "nms_keep"))
     assert launches["decode_v8"] == 1, "the head must decode in one launch a step"
+    assert launches["nms_keep"] == 1, "NMS's keep pass must be one launch a step"
     assert np.isfinite(res.boxes_xyxy).all() and (res.num_valid > 0).all()
 
     # bf16 model outputs, B4 on vs off, within the bf16 fidelity bound. At
@@ -1407,7 +1518,8 @@ def run_onnx(params, frames, resnet_params):
     assert eng.model.graph_backed and eng.model.dynamic_batch
     assert eng.compute_dtype == torch.float32
     assert not eng.host_prepare(frames, frames.shape[1:3])[1], "the graph path takes full frames"
-    path_kernels = {"letterbox": 1, "row_gather": 2, "decode_v8": 0, "fused_stem": 0}
+    path_kernels = {"letterbox": 1, "row_gather": 2, "decode_v8": 0, "fused_stem": 0,
+                    "nms_keep": 1}
     res = step_launches(eng, "onnx_yolo", path_kernels)
     log(f"onnx_yolo num_valid per frame {res.num_valid.tolist()}")
     native = TorchYoloEngine(detector_config(precision="fp32", confidence_threshold=ONNX_CONF),
@@ -1418,7 +1530,11 @@ def run_onnx(params, frames, resnet_params):
     off.predict_arrays(frames)
     _cuda.LAUNCHES.reset()
     res_off = off.predict_arrays(frames)
-    assert not any(_cuda.LAUNCHES.snapshot().values()), "kernels launched with B4 and B1 off"
+    # B6 has no knob (NMS's keep pass is the kernel on the card); the other
+    # kernels stay off
+    assert _cuda.LAUNCHES.snapshot() == dict(row_gather=0, decode_v8=0, fused_stem=0,
+                                             letterbox=0, nms_keep=1), \
+        "kernels launched with B4 and B1 off"
     _, off_score, off_box = hold("onnx graph fp32, B4 + B1 on against off", res, res_off,
                                  score_tol=1e-5, box_tol=1e-3)
     del off
@@ -1536,6 +1652,122 @@ def run_onnx(params, frames, resnet_params):
 # ---------------------------------------------------------------------------
 
 
+def run_artifact(params, frames, frames720, resnet_params):
+    """Serving artifacts: each engine exported on the card into a ``.rvae``
+    (``engine/export.py``), then built from the file alone through
+    ``create_detector``. For the main path (bf16 ``sel``), the device-resize
+    step (``full``), int8 (its calibrated scales from the file), YOLOv5n,
+    ResNet-50 ``full``, CNN-LSTM ``full`` and the YOLOv8n ONNX graph: the
+    exported engine's results equal to the live engine's on the same
+    inputs, bit for bit; the launches of one replayed step by path
+    (``rvae_*``: every kernel a node of the program, none decomposed or
+    replaced); export seconds and artifact bytes; startup (load + warmup of
+    the exported engine against building the live engine from its
+    checkpoint + warmup); the exported step's time against the live one's."""
+    import os
+
+    from realtime_analytics_tpu_torch.config import DetectorConfig, StreamConfig
+    from realtime_analytics_tpu_torch.engine.detector import create_detector
+    from realtime_analytics_tpu_torch.engine.export import export_serving_artifact
+    from realtime_analytics_tpu_torch.models.onnx_export import yolo_to_onnx
+    from realtime_analytics_tpu_torch.models.temporal import build_temporal
+    from realtime_analytics_tpu_torch.models.weights import (
+        synthetic_params,
+        temporal_synthetic_params,
+    )
+    from realtime_analytics_tpu_torch.models.yolo import build_yolo
+    from realtime_analytics_tpu_torch.ops import _cuda
+    from realtime_analytics_tpu_torch.types import FramePacket
+
+    wdir = ROOT / "build" / "chip_smoke"
+    wdir.mkdir(parents=True, exist_ok=True)
+    onnx_path = wdir / "yolov8n_seeded.onnx"
+    if not onnx_path.exists():
+        yolo_to_onnx(build_yolo("yolov8", "n", 80), params, str(onnx_path), (HW, HW))
+    t_len, clips = 16, 4
+    seqs = [[FramePacket(stream=StreamConfig(name=f"cam-{c}", url="synthetic://"),
+                         frame=frames[(c * t_len + t) % len(frames)], frame_id=t,
+                         timestamp=t / 25.0) for t in range(t_len)] for c in range(clips)]
+    yolo_kernels = dict(row_gather=2, decode_v8=1, fused_stem=1, nms_keep=1, letterbox=0)
+    temporal_cfg = dict(model_type="cnn_lstm", device="cuda", input_size=[224, 224],
+                        num_action_classes=400, sequence_length=t_len, batch_buckets=[clips],
+                        max_batch_size=clips, host_resize="off", warmup=False,
+                        confidence_threshold=1e-6)
+    cases = {
+        # name: (config, inputs, source size, launches of one step)
+        "main": (detector_config(model_path=saved_tree("yolov8n_seeded.npz", params)),
+                 frames, yolo_kernels),
+        "device_resize": (detector_config(model_path=saved_tree("yolov8n_seeded.npz", params),
+                                          host_resize="off"),
+                          frames720, dict(yolo_kernels, letterbox=1)),
+        "int8": (detector_config(model_path=saved_tree("yolov8n_seeded.npz", params),
+                                 precision="int8"),
+                 frames, dict(yolo_kernels, fused_stem=0)),
+        "yolov5": (detector_config(model_type="yolov5", model_path=saved_tree(
+                       "yolov5n_seeded.npz", synthetic_params(build_yolo("yolov5", "n", 80),
+                                                              seed=0))),
+                   frames, dict(yolo_kernels, decode_v8=0, fused_stem=0)),
+        "resnet": (resnet_config(model_path=saved_tree("resnet50_seeded.npz", resnet_params)),
+                   frames, dict(letterbox=1)),
+        "temporal": (DetectorConfig(**temporal_cfg, model_path=saved_tree(
+                         "cnn_lstm_seeded.npz",
+                         temporal_synthetic_params(build_temporal("cnn_lstm", 400), seed=0))),
+                     seqs, dict(letterbox=1)),
+        "onnx_yolo": (detector_config(model_path=str(onnx_path), precision="fp32",
+                                      confidence_threshold=ONNX_CONF),
+                      frames, dict(yolo_kernels, decode_v8=0, fused_stem=0, letterbox=1)),
+    }
+
+    def predict(eng, inputs):
+        if isinstance(inputs, list):  # clips
+            dets = eng.predict_clips(inputs)
+            return [np.array([[d.confidence for d in c] for c in dets]),
+                    np.array([[d.class_id for d in c] for c in dets])]
+        if eng.config.model_type == "resnet":
+            return list(eng.classify(inputs))
+        res = eng.predict_arrays(inputs)
+        return [res.boxes_xyxy, res.scores, res.class_ids, res.num_valid]
+
+    paths, out = {}, {}
+    for name, (cfg, inputs, kernels) in cases.items():
+        src_hw = tuple((inputs[0][0].frame if isinstance(inputs, list) else inputs[0]).shape[:2])
+        rvae = str(wdir / f"{name}.rvae")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        live = create_detector(cfg)
+        live.warmup(src_hw)
+        torch.cuda.synchronize()
+        live_start_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        meta = export_serving_artifact(live, rvae, [src_hw])
+        export_s = time.perf_counter() - t0
+        assert [p["batch"] for p in meta["programs"]] == [len(inputs)]
+        t0 = time.perf_counter()
+        eng = create_detector(dataclasses.replace(cfg, model_path=rvae))
+        eng.warmup(src_hw)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        want = predict(live, inputs)
+        torch.cuda.synchronize()
+        _cuda.LAUNCHES.reset()
+        got = predict(eng, inputs)
+        paths[f"rvae_{name}"] = launches = _cuda.LAUNCHES.snapshot()
+        require_counts(f"rvae_{name}", launches, kernels)
+        equal = all(np.array_equal(a, b) for a, b in zip(got, want))
+        live_ms, _ = timed_ms(lambda: predict(live, inputs), 5)
+        step_ms, _ = timed_ms(lambda: predict(eng, inputs), 5)
+        out[name] = dict(program=meta["programs"][0]["name"], export_s=export_s,
+                         artifact_bytes=os.path.getsize(rvae), live_build_warmup_s=live_start_s,
+                         load_warmup_s=load_s, live_step_ms=live_ms, step_ms=step_ms,
+                         equal_to_live=equal, launches=launches)
+        log(f"artifact {name}: " + json.dumps(dict(out[name], card=CARD)))
+        assert equal, f"rvae_{name}: the exported engine's results differ from the live engine's"
+        assert np.isfinite(got[0]).all()
+        del live, eng
+        torch.cuda.empty_cache()
+    return paths, out
+
+
 def run_pipeline(detector, n_streams: int, seconds: float):
     """``AnalyticsPipeline`` with ``n_streams`` pooled synthetic 1080p
     streams at 25 fps for about ``seconds``; the launch counters are set to
@@ -1628,7 +1860,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         kernels = [check_gather(gen), check_decode(gen), check_stem(gen),
-                   check_letterbox(gen)]
+                   check_letterbox(gen), check_nms_keep(gen)]
         torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1681,6 +1913,10 @@ def main() -> int:
     log("onnx " + json.dumps(dict(onnx, card=card)))
     lap("onnx")
     torch.cuda.empty_cache()
+    artifact_paths, artifact = run_artifact(params, frames, frames720, resnet_params)
+    paths.update(artifact_paths)
+    log("artifact " + json.dumps(dict(artifact, card=card)))
+    lap("artifact")
 
     paths["pipeline"], pipe = run_pipeline(detector_config(
         model_path=saved_tree("yolov8n_seeded.npz", params), confidence_threshold=0.25,
@@ -1697,9 +1933,9 @@ def main() -> int:
     log("launches by path " + json.dumps(paths))
     log("phase wall s " + json.dumps(dict(walls, total_since_start=time.perf_counter() - t0)))
     # launches: one step of the path whose shapes the row times (the main
-    # path for B1-B3, the device-resize step for B4); launches_by_path: each
-    # path's own count, read just after its own reset
-    for row, path in zip(kernels, ("main", "main", "main", "device_resize")):
+    # path for B1-B3 and B6, the device-resize step for B4); launches_by_path:
+    # each path's own count, read just after its own reset
+    for row, path in zip(kernels, ("main", "main", "main", "device_resize", "main")):
         row["launches"] = paths[path][row["name"]]
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",

@@ -18,6 +18,9 @@ weights and activations, static scales calibrated at start-up on the
 engine's device) and ``tiling: true`` (SAHI-style tiles at native
 resolution through the same selected step, merged on the host).
 
+A ``.rvae`` serving artifact (``engine/export.py``) is served by the
+exported engine of its family, from the file alone.
+
 A ``.onnx`` file that matches no known checkpoint layout but holds a full
 graph is served as that graph (``models/onnx_graph_model.py``), as the
 reference's ONNX Runtime backend serves any export, in fp32 unless
@@ -30,7 +33,13 @@ one) serve a classifier (clip) graph in their usual steps.
 
 PyTorch runs eagerly, so a "step" is a closure over the static letterbox
 geometry, not a compiled program. Batches are still padded to the
-configured buckets, so every call sees one of a few fixed shapes.
+configured buckets, so every call sees one of a few fixed shapes, and the
+step has no host wait that depends on the data (NMS's keep pass is kernel
+B6 on the card: a main step's waits went from 44 to 16, the uploads, the
+copies back and the allocator's), so ``engine/export.py`` traces it into
+one ``torch.export`` program per shape. What a step reads besides the
+model's weights, prepared once, is the engine's ``prepared_state``; the
+exporter traces the step of a copy ``bind``-ed to a program's inputs.
 
 Device rules: ``device: auto | cuda | cuda:N`` means the card and RAISES
 when none is visible; only ``device: cpu`` runs on the CPU. On the card the
@@ -50,6 +59,8 @@ tensors; the only shared device state is read-only weights.
 from __future__ import annotations
 
 import abc
+import copy
+import dataclasses
 import logging
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -74,7 +85,13 @@ from ..models.weights import (
 from ..models.yolo import build_yolo, size_from_model_path
 from ..ops.boxes import unletterbox_boxes
 from ..ops.int8 import QuantConv, pack_int8_weight
-from ..ops.letterbox import letterbox, stretch_resize
+from ..ops.letterbox import (
+    LetterboxOperands,
+    letterbox,
+    letterbox_operands,
+    stretch_resize,
+    stretch_spec,
+)
 from ..ops.nms import batched_nms
 from ..ops.preprocess import (
     integer_axis_reduction,
@@ -161,7 +178,70 @@ def _cheapest_bucket(buckets: Sequence[int], n: int, costs: Dict[int, float]) ->
     return bucket
 
 
-class TorchYoloEngine(BaseDetector):
+class PreparedState:
+    """What an engine prepares once for its device steps besides the
+    model's weights: the family's own tensors (``_own_state``) and B4's
+    operands of each source geometry (``operands_for``), which the live
+    steps read too. ``engine/export.py`` stores ``prepared_state`` in an
+    artifact and traces the steps of a copy ``bind``-ed to a program's
+    inputs, so that no prepared tensor is baked into a program."""
+
+    device: torch.device
+    _operands: Dict[Tuple[int, int], LetterboxOperands]
+    _bound = False
+
+    def _operands_spec(self, src_hw: Tuple[int, int]):
+        """(the B4 spec, the output dtype) of frames of ``src_hw``."""
+        raise NotImplementedError
+
+    def _own_state(self) -> Dict:
+        return {}
+
+    def _bind_own(self, state: Dict) -> None:
+        pass
+
+    def operands_for(self, src_hw: Tuple[int, int]) -> LetterboxOperands:
+        """B4's operands of frames of ``src_hw``: built at the first call
+        and kept; a bound copy has only those of its state."""
+        src_hw = (int(src_hw[0]), int(src_hw[1]))
+        ops = self._operands.get(src_hw)
+        if ops is None:
+            if self._bound:
+                raise ValueError(f"B4's operands of {src_hw} are not in the bound state")
+            spec, dtype = self._operands_spec(src_hw)
+            ops = self._operands[src_hw] = letterbox_operands(spec, dtype, self.device)
+        return ops
+
+    def prepared_state(self, src_hws: Sequence[Tuple[int, int]] = ()) -> Dict:
+        """The tensors the steps read besides the model's weights, as a
+        tree: the family's own and, under ``letterbox/<H>x<W>``, B4's tables
+        of each of ``src_hws``."""
+        tree = self._own_state()
+        for h, w in src_hws:
+            ops = self.operands_for((h, w))
+            tree.setdefault("letterbox", {})[f"{h}x{w}"] = {
+                "taps": ops.taps, "weights": ops.weights, "spans": ops.spans}
+        return tree
+
+    def bind(self, model, state: Dict):
+        """A shallow copy of this engine whose steps read ``model`` and
+        ``state`` (a tree shaped as ``prepared_state``'s) in place of its
+        own. This engine is left as it is, so it may serve meanwhile."""
+        missing = set(self._own_state()) - set(state)
+        if missing:
+            raise ValueError(f"bind: the state lacks {sorted(missing)}")
+        bound = copy.copy(self)
+        bound.model, bound._bound = model, True
+        bound._operands = {}
+        for key, t in state.get("letterbox", {}).items():
+            hw = tuple(int(v) for v in key.split("x"))
+            bound._operands[hw] = LetterboxOperands(
+                t["taps"], t["weights"], t["spans"], self.operands_for(hw).ints)
+        bound._bind_own(state)
+        return bound
+
+
+class TorchYoloEngine(PreparedState, BaseDetector):
     """YOLOv5/v8 engine with batched inference on one card (or the CPU)."""
 
     def __init__(self, config: DetectorConfig, params: Optional[Dict] = None):
@@ -227,6 +307,7 @@ class TorchYoloEngine(BaseDetector):
         self._bucket_cost_ms: Dict[Tuple[int, int], Dict[int, float]] = {}
         self.class_agnostic_nms = True  # reference NMS is class-agnostic
         self.last_infer_ms: float = 0.0
+        self._operands = {}
 
     def _init_graph(self, graph) -> None:
         """A foreign ONNX graph as the model (the JAX engine's graph
@@ -272,6 +353,41 @@ class TorchYoloEngine(BaseDetector):
         return QuantConv(pack_int8_weight(torch.flip(l0.w_q, dims=[1])),
                          l0.w_scale * (1.0 / 255.0),
                          None if l0.a_scale is None else l0.a_scale * 255.0)
+
+    # -- prepared state (engine/export.py) ---------------------------------
+
+    def _operands_spec(self, src_hw):
+        return letterbox_spec(src_hw, self.input_hw), self.compute_dtype
+
+    def _own_state(self) -> Dict:
+        """The folded stem conv (float, or int8 with its scales), B3's
+        operands of both stems, the class mask."""
+        tree: Dict = {}
+        w0 = self._w0_folded
+        if isinstance(w0, QuantConv):
+            tree["w0_folded"] = {k: v for k, v in w0._asdict().items() if v is not None}
+        elif w0 is not None:
+            tree["w0_folded"] = {"w": w0}
+        for name in ("stem_folded", "stem_plain"):
+            sw = getattr(self, "_" + name)
+            if sw is not None:
+                tree[name] = {f.name: getattr(sw, f.name) for f in dataclasses.fields(sw)
+                              if isinstance(getattr(sw, f.name), torch.Tensor)}
+        if self._class_mask is not None:
+            tree["class_mask"] = self._class_mask
+        return tree
+
+    def _bind_own(self, state: Dict) -> None:
+        if isinstance(self._w0_folded, QuantConv):
+            self._w0_folded = self._w0_folded._replace(**state["w0_folded"])
+        elif self._w0_folded is not None:
+            self._w0_folded = state["w0_folded"]["w"]
+        for name in ("stem_folded", "stem_plain"):
+            sw = getattr(self, "_" + name)
+            if sw is not None:
+                setattr(self, "_" + name, dataclasses.replace(sw, **state[name]))
+        if self._class_mask is not None:
+            self._class_mask = state["class_mask"]
 
     # -- host side ------------------------------------------------------
 
@@ -402,7 +518,8 @@ class TorchYoloEngine(BaseDetector):
         mode = self.config.pallas_preprocess
         needs_resize = (spec.new_h, spec.new_w) != (spec.src_h, spec.src_w)
         if mode == "on" or (mode == "auto" and needs_resize and frames_u8.is_cuda):
-            return letterbox(frames_u8, spec, self.compute_dtype)
+            return letterbox(frames_u8, spec, self.compute_dtype,
+                             self.operands_for((spec.src_h, spec.src_w)))
         return preprocess_batch(frames_u8, spec=spec, out_dtype=self.compute_dtype,
                                 layout="NHWC")
 
@@ -620,13 +737,15 @@ def bgr_unit_rgb(frames_u8: torch.Tensor) -> torch.Tensor:
 
 
 def stretch_unit_rgb(frames_u8: torch.Tensor, dst_hw: Tuple[int, int],
-                     kernel: bool) -> torch.Tensor:
+                     kernel: bool,
+                     operands: Optional[LetterboxOperands] = None) -> torch.Tensor:
     """Full frames [B, H, W, 3] uint8 BGR -> fp32 RGB in [0, 1] at
     ``dst_hw``, as the JAX ResNet and temporal device steps: kernel B4's
     stretch (rounded to uint8 levels) when ``kernel``, else bilinear
-    ``F.interpolate`` with no rounding, then the flip and /255."""
+    ``F.interpolate`` with no rounding, then the flip and /255.
+    ``operands``: B4's tables, in a traced step."""
     if kernel:
-        return stretch_resize(frames_u8, dst_hw, torch.float32)
+        return stretch_resize(frames_u8, dst_hw, torch.float32, operands)
     x = frames_u8.to(torch.float32).permute(0, 3, 1, 2)
     x = F.interpolate(x, size=tuple(dst_hw), mode="bilinear", align_corners=False)
     return x.permute(0, 2, 3, 1).flip(-1) * (1.0 / 255.0)
@@ -646,7 +765,7 @@ def cv2_stretch(frames: Sequence[np.ndarray], dst_hw: Tuple[int, int],
     return out
 
 
-class TorchResNetEngine(BaseDetector):
+class TorchResNetEngine(PreparedState, BaseDetector):
     """ResNet classification engine (counterpart of ``JaxResNetEngine``).
 
     Stretches without letterbox, ImageNet-normalizes and emits the top-K
@@ -692,6 +811,10 @@ class TorchResNetEngine(BaseDetector):
                           memory_format=torch.channels_last).eval()
         self._bucket_cost_ms: Dict[Tuple[int, int], Dict[int, float]] = {}
         self.last_infer_ms = 0.0
+        self._operands = {}
+
+    def _operands_spec(self, src_hw):
+        return stretch_spec(src_hw, self.input_hw), torch.float32
 
     def _host_resize_active(self) -> bool:
         return self.config.host_resize == "on" or (
@@ -723,7 +846,8 @@ class TorchResNetEngine(BaseDetector):
             x = bgr_unit_rgb(frames_u8)
         else:
             kernel = self.config.pallas_preprocess != "off" and self.device.type == "cuda"
-            x = stretch_unit_rgb(frames_u8, self.input_hw, kernel)
+            x = stretch_unit_rgb(frames_u8, self.input_hw, kernel,
+                                 self.operands_for(frames_u8.shape[1:3]) if kernel else None)
         return self._classify_head(x)
 
     def _run_bucket(self, bucket: int, frames: np.ndarray, resized: bool):
@@ -795,9 +919,16 @@ def create_detector(config: DetectorConfig) -> BaseDetector:
     """Factory with the reference's routing semantics (detector.py:54-96):
     temporal model types -> ``TorchTemporalEngine``, resnet ->
     ``TorchResNetEngine``, anything else -> ``TorchYoloEngine`` (YOLOv8).
-    Unported routes raise NotImplementedError naming ROADMAP.md."""
+    A ``.rvae`` artifact -> the exported engine of the same family, which
+    refuses an artifact of another family."""
     if str(config.model_path).endswith(".rvae"):
-        raise NotImplementedError("serving .rvae artifacts" + _NOT_PORTED)
+        from .export import ExportedResNetEngine, ExportedTemporalEngine, ExportedYoloEngine
+
+        if config.model_type in TEMPORAL_MODEL_TYPES:
+            return ExportedTemporalEngine(config)
+        if config.model_type == "resnet":
+            return ExportedResNetEngine(config)
+        return ExportedYoloEngine(config)
     if config.model_type in TEMPORAL_MODEL_TYPES:
         from .temporal import TorchTemporalEngine
 

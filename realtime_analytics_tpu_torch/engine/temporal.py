@@ -42,10 +42,12 @@ from ..models.weights import (
     temporal_params_from_jax,
     temporal_synthetic_params,
 )
+from ..ops.letterbox import stretch_spec
 from ..types import Detection, FramePacket, TemporalDetection
 from .detector import (
     _NOT_PORTED,
     BaseDetector,
+    PreparedState,
     _cheapest_bucket,
     bgr_unit_rgb,
     compute_dtype_of,
@@ -61,7 +63,7 @@ logger = logging.getLogger(__name__)
 TOP_K = 5  # reference emits top-5 actions per clip
 
 
-class TorchTemporalEngine(BaseDetector):
+class TorchTemporalEngine(PreparedState, BaseDetector):
     """CNN-LSTM / 3D-CNN / ConvGRU / SlowFast engine."""
 
     def __init__(self, config: DetectorConfig, params: Optional[Dict] = None):
@@ -111,6 +113,19 @@ class TorchTemporalEngine(BaseDetector):
         self._bucket_cost_ms: Dict[Tuple[int, int], Dict[int, float]] = {}
         self._warned_no_cv2 = False
         self.last_infer_ms = 0.0
+        self._operands = {}
+
+    # -- prepared state (engine/export.py) -------------------------------------
+
+    def _operands_spec(self, src_hw):
+        return stretch_spec(src_hw, self.input_hw), torch.float32
+
+    def _own_state(self) -> Dict:
+        """The family's normalisation."""
+        return {"mean": self._mean, "std": self._std}
+
+    def _bind_own(self, state: Dict) -> None:
+        self._mean, self._std = state["mean"], state["std"]
 
     # -- clip step -----------------------------------------------------------
 
@@ -170,7 +185,8 @@ class TorchTemporalEngine(BaseDetector):
             x = bgr_unit_rgb(flat)
         else:
             kernel = self.config.pallas_preprocess != "off" and self.device.type == "cuda"
-            x = stretch_unit_rgb(flat, self.input_hw, kernel)
+            x = stretch_unit_rgb(flat, self.input_hw, kernel,
+                                 self.operands_for(flat.shape[1:3]) if kernel else None)
         return self._clip_head(x, b)
 
     def _run_bucket(self, bucket: int, clips: np.ndarray, resized: bool):

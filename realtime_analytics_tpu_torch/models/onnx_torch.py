@@ -53,7 +53,7 @@ from __future__ import annotations
 import contextlib
 import logging
 from contextvars import ContextVar
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -1510,6 +1510,17 @@ class CompiledGraph:
 
     def unplanned(self, feeds: Dict[str, object]) -> List[object]:
         return _run(self.graph, _live_feeds(feeds), self.outputs)[0]
+
+    @contextlib.contextmanager
+    def scratch_plans(self) -> Iterator[None]:
+        """Plans made inside are dropped at the end, and none made before
+        is used: a trace (``engine/export.py``) runs on stand-in tensors,
+        whose device copies of the constants must not serve a live call."""
+        kept, self._plans = self._plans, {}
+        try:
+            yield
+        finally:
+            self._plans = kept
 
     def plan_for(self, feeds: Dict[str, object]) -> Optional[_Plan]:
         """The plan of these feeds' key, if one was made."""

@@ -32,7 +32,8 @@ init, loudly).
 ResNet and the temporal models follow the same pattern:
 ``resnet_params_from_jax`` / ``temporal_params_from_jax`` load a JAX tree,
 ``resnet_params_from_state_dict`` (torchvision names, BN eps 1e-5) and
-``temporal_params_from_state_dict`` map torch state dicts, and
+``temporal_params_from_state_dict`` map torch state dicts
+(``temporal_state_dict_from_params`` is the inverse of the last), and
 ``load_resnet_checkpoint`` / ``load_temporal_checkpoint`` read files.
 ``load_tree`` and ``module_tree`` walk any of the modules against its tree.
 """
@@ -542,6 +543,56 @@ def temporal_params_from_state_dict(model: nn.Module, sd: Mapping[str, np.ndarra
             "fc": _t_dense(sd, "fc"),
         }
     raise ValueError(f"unsupported temporal model class: {kind}")
+
+
+def temporal_state_dict_from_params(model: nn.Module, params: Mapping) -> Dict[str, np.ndarray]:
+    """Inverse of ``temporal_params_from_state_dict`` (the JAX package's
+    function of the same name): params tree -> torch-named arrays (OIHW,
+    OIDHW, [out, in]), for .onnx / .npz export. The LSTM's summed bias goes
+    to ``bias_ih_l0`` and ``bias_hh_l0`` is zero."""
+
+    def conv(p):
+        return {"weight": np.asarray(p["w"]).transpose(3, 2, 0, 1), "bias": np.asarray(p["b"])}
+
+    def conv3d(p):
+        return {"weight": np.asarray(p["w"]).transpose(4, 3, 0, 1, 2),
+                "bias": np.asarray(p["b"])}
+
+    def dense(p):
+        return {"weight": np.asarray(p["w"]).T, "bias": np.asarray(p["b"])}
+
+    def flat(prefix, d):
+        return {f"{prefix}.{k}": v for k, v in d.items()}
+
+    kind = type(model).__name__
+    out: Dict[str, np.ndarray] = {}
+    if kind == "CNNLSTM":
+        enc = params["encoder"]
+        for n in ("c1", "c2", "c3"):
+            out.update(flat(n, conv(enc[n])))
+        out.update(flat("proj", dense(enc["proj"])))
+        lstm = params["lstm"]
+        out["lstm.weight_ih_l0"] = np.asarray(lstm["wx"]).T
+        out["lstm.weight_hh_l0"] = np.asarray(lstm["wh"]).T
+        out["lstm.bias_ih_l0"] = np.asarray(lstm["b"])
+        out["lstm.bias_hh_l0"] = np.zeros_like(np.asarray(lstm["b"]))
+        out.update(flat("fc", dense(params["fc"])))
+    elif kind == "ConvGRU":
+        for n in ("stem", "zr", "hcand", "head"):
+            out.update(flat(n, conv(params[n])))
+        out.update(flat("fc", dense(params["fc"])))
+    elif kind == "CNN3D":
+        for n in ("c1", "c2", "c3", "c4"):
+            out.update(flat(n, conv3d(params[n])))
+        out.update(flat("fc", dense(params["fc"])))
+    elif kind == "SlowFast":
+        for path in ("slow", "fast"):
+            for j in (1, 2, 3):
+                out.update(flat(f"{path}.c{j}", conv3d(params[path][f"c{j}"])))
+        out.update(flat("fc", dense(params["fc"])))
+    else:
+        raise ValueError(f"unsupported temporal model class: {kind}")
+    return out
 
 
 def temporal_params_from_jax(model: nn.Module, tree: Mapping) -> nn.Module:

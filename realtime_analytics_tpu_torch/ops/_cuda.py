@@ -17,6 +17,18 @@ The launch path is kept short, because the small kernels cost the host
 more than the card: a wrapper binds its C entry once (``entry``) and calls
 the bound function, takes the raw stream as an int (``stream_of``), and
 counts its launch without a lock (``LaunchCounter``).
+
+Each kernel is also a registered torch op in the ``rva`` namespace
+(``rva::row_gather``, ``rva::decode_v8_levels``, ``rva::fused_stem_p1p2``,
+``rva::letterbox``, ``rva::nms_keep``; each module registers its own): a
+CUDA implementation that reaches the same C entry and counts the same
+launch, a CPU implementation that is the plain version, and a fake one that
+gives the output's shape and dtype. ``torch.export`` keeps such an op as
+one node, so an exported serving step (``engine/export.py``) launches the
+kernels when it is replayed. A wrapper routes through its op only while
+``through_ops`` is active on the calling thread (the exporter traces under
+it); the live engine calls the bound C entry directly, which costs the host
+less than the op's dispatch.
 """
 
 from __future__ import annotations
@@ -29,9 +41,10 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
@@ -49,7 +62,27 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 # the kernels of this package, by wrapper name
-KERNELS = ("row_gather", "decode_v8", "fused_stem", "letterbox")
+KERNELS = ("row_gather", "decode_v8", "fused_stem", "letterbox", "nms_keep")
+
+_route = threading.local()
+
+
+def routed_through_ops() -> bool:
+    """The wrappers call their registered ops (not the C entries) on this
+    thread: inside ``through_ops``."""
+    return getattr(_route, "ops", False)
+
+
+@contextmanager
+def through_ops() -> Iterator[None]:
+    """Route this thread's wrapper calls through the registered ``rva``
+    ops, so that a trace keeps each kernel as one node."""
+    before = routed_through_ops()
+    _route.ops = True
+    try:
+        yield
+    finally:
+        _route.ops = before
 
 
 class LaunchCounter:
@@ -205,10 +238,11 @@ def lib() -> ctypes.CDLL:
             handle.rva_fused_stem.argtypes = [i, p, p, p, p, p, p, p, p, i, i,
                                               i, i, i, i, i, p]
             handle.rva_letterbox.argtypes = [i, p, p, p, p, p, *[i] * 15, p]
+            handle.rva_nms_keep.argtypes = [i, p, p, p, p, i, i, p]
             handle.rva_cuda_error_string.argtypes = [i]
             handle.rva_cuda_error_string.restype = ctypes.c_char_p
             for fn in ("rva_row_gather", "rva_decode_v8_levels", "rva_fused_stem",
-                       "rva_letterbox"):
+                       "rva_letterbox", "rva_nms_keep"):
                 getattr(handle, fn).restype = i
             _lib = handle
     return _lib

@@ -21,12 +21,17 @@ The kernel has two instantiations, ``decode_instantiation`` says which a
 call takes: ``vec16`` (16-byte loads: ``nc`` a multiple of 8 in bf16 or 4
 in fp32, every base pointer 16-byte aligned) and ``element`` (any ``nc``,
 any alignment).
+
+The registered op ``rva::decode_v8_levels`` (``ops/_cuda.py``) takes the
+levels as two tensor lists and the strides: the same launch on CUDA
+tensors, the plain version on CPU ones. ``decode_v8_levels`` calls it inside
+``_cuda.through_ops`` (an exported step).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -162,13 +167,22 @@ def _geometry(shapes: Tuple, strides: Tuple) -> Tuple[_Levels, int, int, int]:
 def decode_v8_levels(levels: Sequence[Level], strides: Sequence[float]) -> Decoded:
     """Decode every level of a v8 head; same contract as the plain
     version. On CUDA tensors: one launch, one allocation per output."""
-    global _launch
     if not levels:
         raise ValueError("decode_v8_levels: no level to decode")
+    if _cuda.routed_through_ops():
+        return torch.ops.rva.decode_v8_levels([b for b, _ in levels], [c for _, c in levels],
+                                              [float(s) for s in strides])
+    if levels[0][0].device.type == "cpu":
+        return decode_v8_levels_plain(levels, strides)
+    return _decode_cuda(levels, strides)
+
+
+def _decode_cuda(levels: Sequence[Level], strides: Sequence[float]) -> Decoded:
+    """The checks and the one launch on CUDA tensors (the wrapper's and the
+    op's)."""
+    global _launch
     box0, cls0 = levels[0]
     dev, dtype, nc = box0.device, box0.dtype, cls0.shape[-1]
-    if dev.type == "cpu":
-        return decode_v8_levels_plain(levels, strides)
     if dev.type != "cuda":
         raise ValueError(f"decode_v8_levels: tensors must be on a CUDA device, got {dev}")
     ptrs, shapes, low_bits = [], [], 0
@@ -224,3 +238,25 @@ def decode_v8_level(box_f: torch.Tensor, cls_f: torch.Tensor, *, stride: float) 
     """Decode one v8 head level; same contract as the plain version: the
     one-level case of ``decode_v8_levels``."""
     return decode_v8_levels([(box_f, cls_f)], [stride])
+
+
+@torch.library.custom_op("rva::decode_v8_levels", mutates_args=(), device_types="cpu")
+def _decode_op(box: List[torch.Tensor], cls: List[torch.Tensor],
+               strides: List[float]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return decode_v8_levels_plain(list(zip(box, cls)), strides)
+
+
+@_decode_op.register_kernel("cuda")
+def _(box: List[torch.Tensor], cls: List[torch.Tensor],
+      strides: List[float]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if len(box) != len(cls) or not box:
+        raise ValueError("decode_v8_levels: need one class level for each box level")
+    return _decode_cuda(list(zip(box, cls)), strides)
+
+
+@_decode_op.register_fake
+def _(box, cls, strides):
+    n, anchors = box[0].shape[0], sum(b.shape[1] * b.shape[2] for b in box)
+    return (box[0].new_empty((n, anchors, 4), dtype=torch.float32),
+            box[0].new_empty((n, anchors), dtype=torch.float32),
+            box[0].new_empty((n, anchors), dtype=torch.int32))

@@ -14,6 +14,10 @@ lock-free launch count (``ops/_cuda.py``).
 ``batched_nms`` makes two calls per step: the top-K boxes ([N, 8400, 4] ->
 [N, 512, 4] at 640 input) and the compaction payload ([N, 512, 6] ->
 [N, 300, 6]).
+
+The registered op ``rva::row_gather`` (``ops/_cuda.py``) reaches the same C
+entry on a CUDA tensor and the plain version on a CPU one; ``row_gather``
+calls it inside ``_cuda.through_ops`` (an exported step).
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ def row_gather(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """payload: [N, M, P] float32; idx: [N, K] int64 with 0 <= idx < M (the
     caller's contract — not checked on the card, where it would cost a
     sync). Returns [N, K, P] float32, bit-identical to the payload rows."""
-    global _launch
+    if _cuda.routed_through_ops():
+        return torch.ops.rva.row_gather(payload, idx)
     if not payload.is_cuda or idx.get_device() != payload.get_device():
         if payload.device.type == "cpu" and idx.device.type == "cpu":
             return row_gather_plain(payload, idx)
@@ -43,6 +48,13 @@ def row_gather(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             f"row_gather: tensors must share one CUDA device, got "
             f"{payload.device} and {idx.device}"
         )
+    return _row_gather_cuda(payload, idx)
+
+
+def _row_gather_cuda(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The checks and the launch on CUDA tensors (the wrapper's and the
+    op's)."""
+    global _launch
     if payload.dtype is not torch.float32 or idx.dtype is not torch.int64:
         raise TypeError(
             f"row_gather: payload must be float32 and idx int64, got "
@@ -70,3 +82,23 @@ def row_gather(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         _cuda.fail(rc, "row_gather")
     _cuda.LAUNCHES.add("row_gather")
     return out
+
+
+@torch.library.custom_op("rva::row_gather", mutates_args=(), device_types="cpu")
+def _row_gather_op(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return row_gather_plain(payload, idx)
+
+
+@_row_gather_op.register_kernel("cuda")
+def _(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    if idx.get_device() != payload.get_device():
+        raise ValueError(
+            f"row_gather: tensors must share one CUDA device, got "
+            f"{payload.device} and {idx.device}"
+        )
+    return _row_gather_cuda(payload, idx)
+
+
+@_row_gather_op.register_fake
+def _(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return payload.new_empty((payload.shape[0], idx.shape[1], payload.shape[2]))

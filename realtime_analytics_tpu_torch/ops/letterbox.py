@@ -24,11 +24,19 @@ The function: uint8 NHWC BGR ``[N, Hs, Ws, 3]`` -> RGB in [0, 1],
 ``[N, dst_h, dst_w, 3]``, resized with half-pixel-centre edge-clamped
 bilinear (H first, then W, in fp32), rounded half up to uint8 levels as cv2
 does, and padded with 114/255 outside the content window.
+
+The registered op ``rva::letterbox`` (``ops/_cuda.py``) takes a geometry's
+tables as tensors and its geometry and plan as integers
+(``letterbox_operands``: what the engine prepares once), so that an
+exported step takes the tables as inputs instead of building them: the
+same launch on CUDA tensors, the plain version on CPU ones.
+``letterbox`` and ``stretch_resize`` call it inside ``_cuda.through_ops``
+(an exported step), with the operands the caller passes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -181,6 +189,11 @@ def letterbox_plain(frames_u8: torch.Tensor, spec: LetterboxSpec,
     """Plain PyTorch version, any device: the kernel's tables and fp32
     arithmetic as tensor ops."""
     taps, weights = _tables(spec, frames_u8.device)
+    return _plain_on_tables(frames_u8, taps, weights, spec, out_dtype)
+
+
+def _plain_on_tables(frames_u8: torch.Tensor, taps: torch.Tensor, weights: torch.Tensor,
+                     spec: LetterboxSpec, out_dtype: torch.dtype) -> torch.Tensor:
     nh, nw = spec.new_h, spec.new_w
     y0, y1 = taps[:nh].long(), taps[nh:2 * nh].long()
     x0, x1 = taps[2 * nh:2 * nh + nw].long(), taps[2 * nh + nw:].long()
@@ -196,15 +209,49 @@ def letterbox_plain(frames_u8: torch.Tensor, spec: LetterboxSpec,
     return out.to(out_dtype)
 
 
+class LetterboxOperands(NamedTuple):
+    """What ``rva::letterbox`` takes of one geometry besides the frames:
+    the tables (taps, weights, the plan's segment spans) on the device and
+    the 14 integers of ``csrc/letterbox.cu``'s entry (the geometry, the
+    plan, the instantiation, the output type), for frames whose base is
+    16-byte aligned (a fresh allocation always is)."""
+
+    taps: torch.Tensor
+    weights: torch.Tensor
+    spans: torch.Tensor
+    ints: Tuple[int, ...]
+
+
+def letterbox_operands(spec: LetterboxSpec, out_dtype: torch.dtype,
+                       device: torch.device) -> LetterboxOperands:
+    """The op's operands of one geometry (built once per geometry)."""
+    (taps, weights, spans), _, ints = _prepared(spec, out_dtype, True, torch.device(device))
+    return LetterboxOperands(taps, weights, spans, ints)
+
+
 def letterbox(frames_u8: torch.Tensor, spec: LetterboxSpec,
-              out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+              out_dtype: torch.dtype = torch.bfloat16,
+              operands: Optional[LetterboxOperands] = None) -> torch.Tensor:
     """frames_u8: [N, src_h, src_w, 3] uint8 BGR, contiguous. Returns the
     letterboxed RGB canvas [N, dst_h, dst_w, 3] in ``out_dtype`` (bf16 or
-    fp32), NHWC-contiguous."""
-    global _launch
+    fp32), NHWC-contiguous. ``operands``: this geometry's
+    ``letterbox_operands``, which a traced step must pass (its tables are
+    then the step's inputs); a direct call builds and keeps its own."""
+    if _cuda.routed_through_ops():
+        if operands is None:
+            raise ValueError("letterbox: a traced step takes the geometry's tables as "
+                             "inputs: pass letterbox_operands")
+        return torch.ops.rva.letterbox(frames_u8, operands.taps, operands.weights,
+                                       operands.spans, list(operands.ints), out_dtype)
     if frames_u8.device.type == "cpu":
         return letterbox_plain(frames_u8, spec, out_dtype)
     dev = _cuda.require_cuda("letterbox", frames_u8)
+    _check_frames(frames_u8, spec)
+    _, tables, geometry = _prepared(spec, out_dtype, frames_u8.data_ptr() % 16 == 0, dev)
+    return _launch_letterbox(frames_u8, tables, geometry, out_dtype)
+
+
+def _check_frames(frames_u8: torch.Tensor, spec: LetterboxSpec) -> None:
     if frames_u8.dtype != torch.uint8:
         raise TypeError(f"letterbox: need uint8 frames, got {frames_u8.dtype}")
     if frames_u8.dim() != 4 or tuple(frames_u8.shape[1:]) != (spec.src_h, spec.src_w, 3):
@@ -214,19 +261,57 @@ def letterbox(frames_u8: torch.Tensor, spec: LetterboxSpec,
         )
     if not frames_u8.is_contiguous():
         raise ValueError("letterbox: frames must be contiguous")
-    n, src = frames_u8.shape[0], frames_u8.data_ptr()
-    if n > 65535:
-        raise ValueError(f"letterbox: {n} frames exceed one launch's grid")
-    _, tables, geometry = _prepared(spec, out_dtype, src % 16 == 0, dev)
-    out = frames_u8.new_empty((n, spec.dst_h, spec.dst_w, 3), dtype=out_dtype)
+    if frames_u8.shape[0] > 65535:
+        raise ValueError(f"letterbox: {frames_u8.shape[0]} frames exceed one launch's grid")
+
+
+def _launch_letterbox(frames_u8: torch.Tensor, tables: Tuple[int, int, int],
+                      geometry: Tuple[int, ...], out_dtype: torch.dtype) -> torch.Tensor:
+    """One launch on checked frames: table pointers and the entry's 14
+    integers (the wrapper's and the op's)."""
+    global _launch
+    dev = frames_u8.device
+    out = frames_u8.new_empty((frames_u8.shape[0], geometry[2], geometry[3], 3),
+                             dtype=out_dtype)
     if _launch is None:
         _launch = _cuda.entry("rva_letterbox")
-    rc = _launch(dev.index, src, out.data_ptr(), *tables, n, *geometry,
-                 _cuda.stream_of(dev.index))
+    rc = _launch(dev.index, frames_u8.data_ptr(), out.data_ptr(), *tables,
+                 frames_u8.shape[0], *geometry, _cuda.stream_of(dev.index))
     if rc:
         _cuda.fail(rc, "letterbox")
     _cuda.LAUNCHES.add("letterbox")
     return out
+
+
+def _spec_of(ints: List[int]) -> LetterboxSpec:
+    src_h, src_w, dst_h, dst_w, new_h, new_w, pad_top, pad_left = ints[:8]
+    return LetterboxSpec(src_h=src_h, src_w=src_w, dst_h=dst_h, dst_w=dst_w,
+                         scale=new_h / src_h, new_h=new_h, new_w=new_w,
+                         pad_top=pad_top, pad_left=pad_left)
+
+
+@torch.library.custom_op("rva::letterbox", mutates_args=(), device_types="cpu")
+def _letterbox_op(frames_u8: torch.Tensor, taps: torch.Tensor, weights: torch.Tensor,
+                  spans: torch.Tensor, ints: List[int],
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    return _plain_on_tables(frames_u8, taps, weights, _spec_of(ints), out_dtype)
+
+
+@_letterbox_op.register_kernel("cuda")
+def _(frames_u8, taps, weights, spans, ints, out_dtype):
+    _cuda.require_cuda("letterbox", frames_u8, taps, weights, spans)
+    _check_frames(frames_u8, _spec_of(ints))
+    if ints[-1] != int(out_dtype == torch.bfloat16):
+        raise TypeError(f"letterbox: the operands were made for another output than {out_dtype}")
+    if ints[-2] and frames_u8.data_ptr() % 16:
+        raise ValueError("letterbox: the operands' vec16 plan needs 16-byte aligned frames")
+    return _launch_letterbox(frames_u8, (taps.data_ptr(), weights.data_ptr(),
+                                         spans.data_ptr()), tuple(ints), out_dtype)
+
+
+@_letterbox_op.register_fake
+def _(frames_u8, taps, weights, spans, ints, out_dtype):
+    return frames_u8.new_empty((frames_u8.shape[0], ints[2], ints[3], 3), dtype=out_dtype)
 
 
 def stretch_resize_plain(frames_u8: torch.Tensor, dst_hw: Tuple[int, int],
@@ -237,8 +322,9 @@ def stretch_resize_plain(frames_u8: torch.Tensor, dst_hw: Tuple[int, int],
 
 
 def stretch_resize(frames_u8: torch.Tensor, dst_hw: Tuple[int, int],
-                   out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                   out_dtype: torch.dtype = torch.bfloat16,
+                   operands: Optional[LetterboxOperands] = None) -> torch.Tensor:
     """Non-aspect-preserving resize to ``dst_hw`` (the ResNet and temporal
     preprocess): the letterbox kernel with a zero-pad spec."""
     spec = stretch_spec(tuple(frames_u8.shape[1:3]), dst_hw)
-    return letterbox(frames_u8, spec, out_dtype)
+    return letterbox(frames_u8, spec, out_dtype, operands)

@@ -8,9 +8,13 @@ once:
      tied scores go to the lowest index (``torch.topk`` promises no order
      among ties; ``jax.lax.top_k`` takes the lowest index first);
   2. one IoU matrix per image [K, K]; suppression is strict, ``iou > thr``;
-  3. greedy suppression as the monotone fixpoint ``keep = valid & ~(overlap
-     @ keep > 0)``, swept until nothing changes (equal to greedy NMS). Each
-     sweep is one batched matmul and one host sync to test for change;
+  3. greedy suppression: the keep mask is the unique fixpoint of
+     ``keep = valid & ~(overlap @ keep > 0)`` (equal to greedy NMS, because
+     ``overlap`` only links a candidate to better-ranked ones). On the card
+     kernel B6 (``csrc/nms.cu``, ``nms_keep``) computes it in one launch,
+     with no host wait; the plain version (``nms_keep_plain``, what the CPU
+     runs) sweeps it until nothing changes, one batched matmul and one host
+     sync a sweep, as the reference's ``lax.while_loop`` sweeps on device;
   4. kept rows compacted by a stable argsort of ``~keep`` into ``max_det``
      padded slots, plus a validity count.
 
@@ -19,6 +23,10 @@ the GLOBAL min/max over the whole [N, K, 4] candidate tensor — a quirk of
 the reference that the port matches. Both payload gathers (top-K boxes and
 the compaction payload) go through kernel B1 (``ops/gather.py``) unless
 ``gather_impl="torch"``.
+
+``nms_keep`` is also the registered op ``rva::nms_keep`` (``ops/_cuda.py``),
+which an exported step keeps as one node: the kernel on CUDA tensors, the
+plain sweeps on CPU ones.
 """
 
 from __future__ import annotations
@@ -27,10 +35,86 @@ from typing import Tuple
 
 import torch
 
+from . import _cuda
 from .boxes import iou_matrix
 from .gather import row_gather
 
 _CLASS_OFFSET = 8192.0  # class-shift floor (actual offset adapts to coords)
+SMEM_ROWS = 1024  # K up to which B6 packs the rows in shared memory (csrc/nms.cu)
+
+_launch = None  # the bound C entry, set at the first launch
+
+
+def nms_keep_plain(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: sweep ``keep = valid & ~(overlap @ keep > 0)``
+    from ``keep = valid`` until nothing changes (0/1 sums in fp32 are
+    exact). Each sweep waits on the host."""
+    ov = overlap.to(torch.float32)
+    keep = valid
+    for _ in range(overlap.shape[-1]):
+        suppressed = torch.bmm(ov, keep.to(torch.float32)[..., None])[..., 0] > 0.0
+        new_keep = valid & ~suppressed
+        if torch.equal(new_keep, keep):
+            break
+        keep = new_keep
+    return keep
+
+
+def nms_keep(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Greedy suppression: overlap [N, K, K] bool, set at [i, j] only for j
+    ranked before i (candidate i overlaps the better j); valid [N, K] bool.
+    Returns keep [N, K] bool: valid candidates not overlapping a kept
+    better one. On CUDA tensors kernel B6 (one launch); on CPU ones the
+    plain sweeps."""
+    if _cuda.routed_through_ops():
+        return torch.ops.rva.nms_keep(overlap, valid)
+    if overlap.device.type == "cpu" and valid.device.type == "cpu":
+        return nms_keep_plain(overlap, valid)
+    return _nms_keep_cuda(overlap, valid)
+
+
+def _nms_keep_cuda(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The checks and the launch on CUDA tensors (the wrapper's and the
+    op's)."""
+    global _launch
+    dev = _cuda.require_cuda("nms_keep", overlap, valid)
+    if overlap.dtype != torch.bool or valid.dtype != torch.bool:
+        raise TypeError(f"nms_keep: overlap and valid must be bool, got {overlap.dtype} "
+                        f"and {valid.dtype}")
+    if overlap.dim() != 3 or valid.dim() != 2 or tuple(overlap.shape) != (
+            valid.shape[0], valid.shape[1], valid.shape[1]):
+        raise ValueError(f"nms_keep: need overlap [N, K, K] and valid [N, K], got "
+                         f"{tuple(overlap.shape)} and {tuple(valid.shape)}")
+    if not (overlap.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("nms_keep: overlap and valid must be contiguous")
+    n, k = valid.shape
+    keep = torch.empty_like(valid)
+    scratch = (torch.empty(n * k * (-(-k // 32)), dtype=torch.int32, device=dev)
+               if k > SMEM_ROWS else None)
+    if _launch is None:
+        _launch = _cuda.entry("rva_nms_keep")
+    rc = _launch(dev.index, overlap.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), n, k,
+                 _cuda.stream_of(dev.index))
+    if rc:
+        _cuda.fail(rc, "nms_keep")
+    _cuda.LAUNCHES.add("nms_keep")
+    return keep
+
+
+@torch.library.custom_op("rva::nms_keep", mutates_args=(), device_types="cpu")
+def _nms_keep_op(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    return nms_keep_plain(overlap, valid).clone()
+
+
+@_nms_keep_op.register_kernel("cuda")
+def _(overlap, valid):
+    return _nms_keep_cuda(overlap, valid)
+
+
+@_nms_keep_op.register_fake
+def _(overlap, valid):
+    return torch.empty_like(valid)
 
 
 def _torch_gather(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -90,18 +174,10 @@ def batched_nms(
     iou = iou_matrix(nms_boxes, nms_boxes)  # [N, K, K]
     rank = torch.arange(k, device=dev)
     outranked = rank[None, :, None] > rank[None, None, :]  # j before i
-    overlap = (
-        (iou > iou_threshold) & outranked & valid[:, None, :] & valid[:, :, None]
-    ).to(torch.float32)
+    overlap = (iou > iou_threshold) & outranked & valid[:, None, :] & valid[:, :, None]
 
-    # 3. fixpoint sweeps (0/1 sums in fp32 are exact)
-    keep = valid
-    for _ in range(k):
-        suppressed = torch.bmm(overlap, keep.to(torch.float32)[..., None])[..., 0] > 0.0
-        new_keep = valid & ~suppressed
-        if torch.equal(new_keep, keep):
-            break
-        keep = new_keep
+    # 3. greedy suppression: B6 on the card, the fixpoint sweeps on the CPU
+    keep = nms_keep(overlap, valid)
 
     # 4. stable compaction, kept rows first in score order
     d = min(max_det, k)

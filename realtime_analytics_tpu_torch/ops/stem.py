@@ -22,6 +22,12 @@ All versions compute in fp32 on weights holding the compute-dtype values
 (``prepare_stem`` lays them out once, at engine build) and round P1 and P2
 once each, as the reference's Pallas kernel does (f32 accumulation, bias
 and SiLU in f32 before the cast).
+
+The registered op ``rva::fused_stem_p1p2`` (``ops/_cuda.py``) takes
+``StemWeights`` as its tensors (the packed bf16 operands optional): the
+same launch on CUDA tensors, the plain version on CPU ones.
+``fused_stem_p1p2`` calls it inside ``_cuda.through_ops`` (an exported
+step).
 """
 
 from __future__ import annotations
@@ -170,9 +176,17 @@ def fused_stem_p1p2(x: torch.Tensor, sw: StemWeights) -> torch.Tensor:
     stem-folded weights absorb BGR flip and /255). Returns the node-1
     output [N, H/4, W/4, c1] NHWC-contiguous, which the model views as a
     channels_last NCHW tensor with ``permute(0, 3, 1, 2)``."""
-    global _launch
+    if _cuda.routed_through_ops():
+        return torch.ops.rva.fused_stem_p1p2(x, sw.w0, sw.b0, sw.w1, sw.b1, sw.w0p, sw.w1p)
     if x.device.type == "cpu":
         return fused_stem_p1p2_plain(x, sw)
+    return _stem_cuda(x, sw)
+
+
+def _stem_cuda(x: torch.Tensor, sw: StemWeights) -> torch.Tensor:
+    """The checks and the launch on CUDA tensors (the wrapper's and the
+    op's)."""
+    global _launch
     dev = _cuda.require_cuda("fused_stem_p1p2", x, sw.w0, sw.b0, sw.w1, sw.b1)
     if x.dtype not in (torch.bfloat16, torch.float32) or x.dtype != sw.dtype:
         raise TypeError(
@@ -212,3 +226,27 @@ def fused_stem_p1p2(x: torch.Tensor, sw: StemWeights) -> torch.Tensor:
         _cuda.fail(rc, "fused_stem_p1p2")
     _cuda.LAUNCHES.add("fused_stem")
     return out
+
+
+def _op_weights(x, w0, b0, w1, b1, w0p, w1p) -> StemWeights:
+    """The op's tensors as ``StemWeights`` of x's dtype (``prepare_stem``
+    rounded them to it)."""
+    return StemWeights(w0=w0, b0=b0, w1=w1, b1=b1, dtype=x.dtype, w0p=w0p, w1p=w1p)
+
+
+@torch.library.custom_op("rva::fused_stem_p1p2", mutates_args=(), device_types="cpu")
+def _stem_op(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
+             b1: torch.Tensor, w0p: Optional[torch.Tensor],
+             w1p: Optional[torch.Tensor]) -> torch.Tensor:
+    return fused_stem_p1p2_plain(x, _op_weights(x, w0, b0, w1, b1, w0p, w1p))
+
+
+@_stem_op.register_kernel("cuda")
+def _(x, w0, b0, w1, b1, w0p, w1p):
+    return _stem_cuda(x, _op_weights(x, w0, b0, w1, b1, w0p, w1p))
+
+
+@_stem_op.register_fake
+def _(x, w0, b0, w1, b1, w0p, w1p):
+    n, h, w, _ = x.shape
+    return x.new_empty((n, h // 4, w // 4, w1.shape[-1]))

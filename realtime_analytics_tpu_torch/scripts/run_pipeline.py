@@ -4,7 +4,7 @@ Flag parity with the reference (scripts/run_pipeline.py:23-60), plus
 ``--broker`` to spawn the in-repo eventbus broker in-process when the config
 uses the eventbus transport (single-box demos without Kafka). The JAX
 package's ``--shards`` and ``--jax-profile`` are not ported (ROADMAP.md
-Queue A items 7 and 15).
+Queue A items 7 and 6).
 
     python -m realtime_analytics_tpu_torch.scripts.run_pipeline \\
         --config config/pipeline-sim.yaml --duration 30

@@ -168,7 +168,6 @@ def test_device_rules():
 @pytest.mark.parametrize("over,match", [
     (dict(model_type="resnet", mesh_shape=[2, 1]), "ResNet"),
     (dict(model_type="cnn_lstm", mesh_shape=[2, 1]), "temporal"),
-    (dict(model_path="model.rvae"), "rvae"),
     (dict(mesh_shape=[2, 1]), "mesh_shape"),
 ])
 def test_unported_routes_raise(over, match):

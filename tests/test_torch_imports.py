@@ -36,7 +36,12 @@ assert {"realtime_analytics_tpu_torch.ops.int8",
         "realtime_analytics_tpu_torch.models.onnx_exec",
         "realtime_analytics_tpu_torch.models.onnx_torch",
         "realtime_analytics_tpu_torch.models.onnx_graph_model",
-        "realtime_analytics_tpu_torch.models.onnx_export"} <= set(names), names
+        "realtime_analytics_tpu_torch.models.onnx_export",
+        "realtime_analytics_tpu_torch.models.quantize",
+        "realtime_analytics_tpu_torch.engine.export",
+        "realtime_analytics_tpu_torch.scripts.export_engine",
+        "realtime_analytics_tpu_torch.scripts.quantize_model",
+        "realtime_analytics_tpu_torch.scripts.export_temporal_model"} <= set(names), names
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)

@@ -15,7 +15,9 @@ to bf16 in both versions; accumulation order may flip one rounding); B4 pad
 exact, content within one uint8 level (plus one bf16 ulp in bf16) on under
 1% of the pixels, and at the new shapes bit for bit: both versions run the
 same tables in the same fp32 order without FMA contraction, and a tap of
-weight 0 that the kernel leaves out changes no bit.
+weight 0 that the kernel leaves out changes no bit; B6 bit-equal (a boolean
+mask: greedy is the fixpoint's unique solution). Each registered ``rva`` op
+on CUDA tensors equals its wrapper bit for bit and counts one launch.
 """
 
 import numpy as np
@@ -34,10 +36,12 @@ from realtime_analytics_tpu_torch.ops.gather import row_gather, row_gather_plain
 from realtime_analytics_tpu_torch.ops.letterbox import (
     letterbox,
     letterbox_instantiation,
+    letterbox_operands,
     letterbox_plain,
     letterbox_plan,
     stretch_spec,
 )
+from realtime_analytics_tpu_torch.ops.nms import nms_keep, nms_keep_plain
 from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
 from realtime_analytics_tpu_torch.ops.stem import (
     fused_stem_p1p2,
@@ -353,3 +357,91 @@ def test_letterbox_rejects_what_it_does_not_take(card):
         letterbox(torch.zeros(1, 48, 128, 3, dtype=torch.uint8, device=card)[:, :, ::2], spec)
     with pytest.raises(TypeError):  # an output dtype the kernel does not write
         letterbox(torch.zeros(1, 48, 64, 3, dtype=torch.uint8, device=card), spec, torch.float16)
+
+
+def _overlaps(card, n, k, p, valid_p, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    s = torch.rand(n, k, k, generator=g, device=card) < p
+    valid = torch.rand(n, k, generator=g, device=card) < valid_p
+    tri = torch.ones(k, k, dtype=torch.bool, device=card).tril(-1)
+    return (s & tri & valid[:, :, None] & valid[:, None, :]).contiguous(), valid
+
+
+@pytest.mark.parametrize("n,k,p,valid_p", [
+    (32, 512, 0.02, 0.9),   # the main path's shape
+    (32, 1024, 0.01, 0.9),  # the largest K packed in shared memory
+    (4, 2048, 0.005, 0.9),  # rows in the scratch buffer, two words a lane
+    (2, 8400, 0.001, 0.9),  # every anchor of a 640 input as a candidate
+    (2, 4099, 0.002, 0.9),  # past 4096, K % 16 != 0
+    (8, 300, 0.03, 0.9),    # K % 16 != 0: byte reads
+    (32, 512, 0.02, 1.0), (32, 512, 0.02, 0.0), (3, 17, 0.5, 0.8),
+])
+def test_nms_keep_bit_equal_to_plain(card, n, k, p, valid_p):
+    ov, valid = _overlaps(card, n, k, p, valid_p, seed=n + k)
+    before = _cuda.LAUNCHES.snapshot()["nms_keep"]
+    got = nms_keep(ov, valid)
+    assert _cuda.LAUNCHES.snapshot()["nms_keep"] == before + 1
+    assert torch.equal(got, nms_keep_plain(ov, valid))
+
+
+def test_nms_keep_on_a_chain(card):
+    """Every rank overlaps the one before it: greedy keeps every other."""
+    k = 512
+    ov = torch.zeros(2, k, k, dtype=torch.bool, device=card)
+    ov[:, torch.arange(1, k), torch.arange(k - 1)] = True
+    valid = torch.ones(2, k, dtype=torch.bool, device=card)
+    got = nms_keep(ov, valid)
+    assert torch.equal(got, nms_keep_plain(ov, valid))
+    assert torch.equal(got[0].cpu(), torch.arange(k) % 2 == 0)
+
+
+def test_nms_keep_rejects_what_it_does_not_take(card):
+    ov, valid = _overlaps(card, 2, 64, 0.1, 0.9, seed=1)
+    before = _cuda.LAUNCHES.snapshot()["nms_keep"]
+    with pytest.raises(TypeError):
+        nms_keep(ov.float(), valid)
+    with pytest.raises(ValueError):
+        nms_keep(ov[:, :, :32], valid)
+    with pytest.raises(ValueError):
+        nms_keep(ov.transpose(1, 2), valid)
+    assert _cuda.LAUNCHES.snapshot()["nms_keep"] == before
+
+
+def _launches_of(name, fn):
+    before = _cuda.LAUNCHES.snapshot()[name]
+    out = fn()
+    assert _cuda.LAUNCHES.snapshot()[name] == before + 1
+    return out
+
+
+def test_each_op_equals_its_wrapper_on_the_card(card):
+    g = torch.Generator(device=card).manual_seed(3)
+    payload = torch.randn(4, 1000, 4, generator=g, device=card)
+    idx = torch.randint(0, 1000, (4, 64), generator=g, device=card)
+    assert torch.equal(_launches_of("row_gather", lambda: torch.ops.rva.row_gather(payload, idx)),
+                       row_gather(payload, idx))
+    levels = [(torch.randn(2, h, h, 64, generator=g, device=card).to(torch.bfloat16),
+               torch.randn(2, h, h, 80, generator=g, device=card).to(torch.bfloat16))
+              for h in (16, 8, 4)]
+    got = _launches_of("decode_v8", lambda: torch.ops.rva.decode_v8_levels(
+        [b for b, _ in levels], [c for _, c in levels], [8.0, 16.0, 32.0]))
+    for a, b in zip(got, decode_v8_levels(levels, [8.0, 16.0, 32.0])):
+        assert torch.equal(a, b)
+    sw = prepare_stem(torch.randn(16, 3, 3, 3, generator=g, device=card) * 0.2,
+                      torch.randn(16, generator=g, device=card) * 0.1,
+                      torch.randn(32, 16, 3, 3, generator=g, device=card) * 0.1,
+                      torch.randn(32, generator=g, device=card) * 0.1, torch.bfloat16)
+    x = (torch.rand(2, 64, 64, 3, generator=g, device=card) * 255).to(torch.bfloat16)
+    got = _launches_of("fused_stem", lambda: torch.ops.rva.fused_stem_p1p2(
+        x, sw.w0, sw.b0, sw.w1, sw.b1, sw.w0p, sw.w1p))
+    assert torch.equal(got, fused_stem_p1p2(x, sw))
+    frames = torch.randint(0, 256, (2, 120, 160, 3), generator=g, device=card,
+                           dtype=torch.uint8)
+    spec = letterbox_spec((120, 160), (64, 64))
+    ops = letterbox_operands(spec, torch.bfloat16, card)
+    got = _launches_of("letterbox", lambda: torch.ops.rva.letterbox(
+        frames, ops.taps, ops.weights, ops.spans, list(ops.ints), torch.bfloat16))
+    assert torch.equal(got, letterbox(frames, spec))
+    ov, valid = _overlaps(card, 4, 128, 0.05, 0.9, seed=2)
+    got = _launches_of("nms_keep", lambda: torch.ops.rva.nms_keep(ov, valid))
+    assert torch.equal(got, nms_keep(ov, valid))

@@ -240,7 +240,7 @@ def test_launch_counter_loses_no_count_across_threads():
     from realtime_analytics_tpu_torch.ops._cuda import KERNELS, LaunchCounter
 
     counter = LaunchCounter()
-    workers, adds = 16, 5000
+    workers, adds = 4 * len(KERNELS), 5000  # the same number of workers a kernel
     start = threading.Barrier(workers + 1)
 
     def work(i):
