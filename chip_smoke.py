@@ -94,13 +94,26 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
     the full-frame steps); export seconds, artifact bytes, startup (load +
     warmup against building the live engine from its checkpoint + warmup)
     and step time against the live engine's;
-13. the pipelines: ``AnalyticsPipeline`` with 32 pooled ``synthetic://``
+13. training and evaluation ("train"): one YOLOv8n train step at 640
+    (nc 80, the seeded weights, 2 labeled synthetic images), its loss and
+    every gradient leaf on the card (TF32 off) against the port on the CPU;
+    ``make_train_step`` at 640, batch 16, 30 steps on 16 synthetic
+    1280x1280 sources (no kernel launched: B2 and B3 have no backward; the
+    last loss below the first; ms a step, host batch apart, images/s, peak
+    memory; one more step under ``torch.profiler``: its device time and
+    top kernels); the trained weights in a fp32 engine (bucket 16) on 16
+    labeled 1080p frames (B1 twice, B2, B3 and B6 once; model outputs and
+    detections held against every kernel off, class flips only at tied
+    logits; detections against B1 off; map50); the train CLI's integration recipe
+    (400 steps at 64², nc 4) with its map50 above a random init's; the
+    eval CLI on the full-width checkpoint (32 synthetic 1080p frames);
+14. the pipelines: ``AnalyticsPipeline`` with 32 pooled ``synthetic://``
     1080p streams at 25 fps on YOLOv8n for about 15 s, then 8 such streams
     on ResNet-50 with ``host_resize: off`` for about 5 s;
-14. the ``{"kernels": [...]}`` line, the card line, and last
+15. the ``{"kernels": [...]}`` line, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
-Every path of phases 4-13 runs with the launch counters set to 0 just
+Every path of phases 4-14 runs with the launch counters set to 0 just
 before and read just after; each fails unless the kernels it runs were
 launched (the YOLO v8 steps: ``decode_v8`` exactly once a step; every YOLO
 step: ``nms_keep`` once) and, on the int8, v5, ONNX and artifact paths,
@@ -121,6 +134,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -682,9 +696,10 @@ def compare(a, b):
     return same, score_d, box_d
 
 
-def model_outputs(eng, frames):
+def model_outputs(eng, frames, reduce_scores=True):
     """The engine's model outputs (before NMS) on its selected-step input:
-    the host pick, then pad + cast on the card, as ``_step_selected``."""
+    the host pick, then pad + cast on the card, as ``_step_selected``;
+    every class's score when not ``reduce_scores``."""
     from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
 
     spec = letterbox_spec(frames.shape[1:3], eng.input_hw)
@@ -692,7 +707,8 @@ def model_outputs(eng, frames):
     assert selected
     with torch.inference_mode():
         x = eng._pad_cast(torch.from_numpy(sel).cuda(), spec)
-        out = eng._forward_selected(x)
+        out = (eng._forward_selected(x) if reduce_scores else
+               eng.model(x, w0=eng._w0_folded, stem_weights=eng._stem_folded))
     return {k: v.float() for k, v in out.items()}
 
 
@@ -700,10 +716,11 @@ def hold(name, a, b, score_tol, box_tol):
     """Detections of two engines agree on every frame: num_valid and
     classes equal, scores and boxes within the tolerances."""
     same, score_d, box_d = compare(a, b)
-    log(f"{name}: {same}/{N} frames with equal num_valid and classes, max "
+    n = len(a.num_valid)
+    log(f"{name}: {same}/{n} frames with equal num_valid and classes, max "
         f"|score| delta {score_d:.3g} (tol {score_tol}), max |box| delta "
         f"{box_d:.3g} px (tol {box_tol})")
-    assert same == N and score_d <= score_tol and box_d <= box_tol, f"{name} disagree"
+    assert same == n and score_d <= score_tol and box_d <= box_tol, f"{name} disagree"
     return same, score_d, box_d
 
 
@@ -1349,6 +1366,34 @@ def static_batch_copy(src: str, dst: str) -> int:
     return len(targets)
 
 
+def paired(res, ref, swap_px: float):
+    """Detections of two engines after NMS, frame by frame: the frames whose
+    counts or class multisets differ; over the others, each detection paired
+    with the nearest box of its class on the other side, the largest score
+    and box differences, except near-tie swaps (scores equal to 1e-6, boxes
+    more than ``swap_px`` apart: NMS took another of two tied candidates),
+    which are counted."""
+    differ, swaps, score_d, box_d = [], 0, 0.0, 0.0
+    for i in range(len(res.num_valid)):
+        n = int(res.num_valid[i])
+        ca, cb = res.class_ids[i, :n], ref.class_ids[i, :n]
+        if n != int(ref.num_valid[i]) or not np.array_equal(np.sort(ca), np.sort(cb)):
+            differ.append(i)
+            continue
+        free = list(range(n))
+        for j in range(n):
+            k = min((f for f in free if cb[f] == ca[j]), key=lambda f: float(
+                np.abs(res.boxes_xyxy[i, j] - ref.boxes_xyxy[i, f]).max()))
+            free.remove(k)
+            ds = abs(float(res.scores[i, j]) - float(ref.scores[i, k]))
+            db = float(np.abs(res.boxes_xyxy[i, j] - ref.boxes_xyxy[i, k]).max())
+            if db > swap_px and ds <= 1e-6:
+                swaps += 1
+                continue
+            score_d, box_d = max(score_d, ds), max(box_d, db)
+    return differ, swaps, score_d, box_d
+
+
 def hold_against_native(eng, native, frames, res):
     """The graph engine against the native fp32 engine on the same tree.
     Before NMS, on the same pixels (the graph on the device letterbox, the
@@ -1375,25 +1420,8 @@ def hold_against_native(eng, native, frames, res):
     cls_agree = (got["cls"] == want["cls"]).float().mean().item()
     passing = (want["conf"] >= eng.config.confidence_threshold).sum(1).float().mean().item()
     del got, want
-    ref = native.predict_arrays(frames)
-    same, swaps, score_d, box_d_nms = 0, 0, 0.0, 0.0
-    for i in range(N):
-        n = int(res.num_valid[i])
-        ca, cb = res.class_ids[i, :n], ref.class_ids[i, :n]
-        if n != int(ref.num_valid[i]) or not np.array_equal(np.sort(ca), np.sort(cb)):
-            continue
-        same += 1
-        free = list(range(n))
-        for j in range(n):
-            k = min((f for f in free if cb[f] == ca[j]), key=lambda f: float(
-                np.abs(res.boxes_xyxy[i, j] - ref.boxes_xyxy[i, f]).max()))
-            free.remove(k)
-            ds = abs(float(res.scores[i, j]) - float(ref.scores[i, k]))
-            db = float(np.abs(res.boxes_xyxy[i, j] - ref.boxes_xyxy[i, k]).max())
-            if db > 0.5 and ds <= 1e-6:
-                swaps += 1
-                continue
-            score_d, box_d_nms = max(score_d, ds), max(box_d_nms, db)
+    differ, swaps, score_d, box_d_nms = paired(res, native.predict_arrays(frames), 0.5)
+    same = N - len(differ)
     log(f"onnx graph fp32 against the native fp32 engine: model outputs max |conf| delta "
         f"{conf_d:.3g} (<= 1e-4), max |box| delta {box_d:.3g} px (<= 1e-2), class agreement "
         f"{cls_agree:.5f} (>= 0.999), {passing:.0f} anchors a frame pass the threshold; "
@@ -1648,7 +1676,7 @@ def run_onnx(params, frames, resnet_params):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the pipelines
+# phase 12: serving artifacts
 # ---------------------------------------------------------------------------
 
 
@@ -1766,6 +1794,327 @@ def run_artifact(params, frames, frames720, resnet_params):
         del live, eng
         torch.cuda.empty_cache()
     return paths, out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: training and evaluation
+# ---------------------------------------------------------------------------
+
+
+def rel_l2(got: np.ndarray, want: np.ndarray) -> float:
+    """||got - want|| / ||want|| (0 when both are zero)."""
+    diff = float(np.linalg.norm(got - want))
+    return diff / max(float(np.linalg.norm(want)), 1e-30) if diff else 0.0
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def labeled_frames(n: int, hw):
+    """``n`` labeled synthetic frames (4 boxes each, source seeds 0..n-1)
+    and their ground truth."""
+    from realtime_analytics_tpu_torch.ingest.synthetic import SyntheticSource
+
+    frames, gts = [], []
+    for i in range(n):
+        ok, frame, gt, cls = SyntheticSource(width=hw[1], height=hw[0], boxes=4,
+                                             seed=i).read_labeled()
+        assert ok
+        frames.append(frame)
+        gts.append((np.asarray(gt, np.float32), np.asarray(cls, int)))
+    return np.stack(frames), gts
+
+
+def rows_of(res):
+    """The valid detections of each frame of a result: (boxes, scores, classes)."""
+    for i in range(len(res.num_valid)):
+        n = int(res.num_valid[i])
+        yield res.boxes_xyxy[i, :n], res.scores[i, :n], res.class_ids[i, :n].astype(int)
+
+
+def map50(rows, gts) -> float:
+    from realtime_analytics_tpu_torch.eval.detection_metrics import (
+        DetectionSample,
+        evaluate_detections,
+    )
+
+    samples = [DetectionSample(det_boxes=b, det_scores=sc, det_classes=c, gt_boxes=gt,
+                               gt_classes=cls)
+               for (b, sc, c), (gt, cls) in zip(rows, gts)]
+    return evaluate_detections(samples)["map50"]
+
+
+def trace_step(step_fn, state, images, targets, top=6):
+    """One more train step under ``torch.profiler`` (CPU and CUDA): its wall
+    ms, the card's busy ms (the kernels' device time, summed) and the
+    ``top`` kernels by device time. The trace's own cost is in the wall
+    time, so it is not the step's time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, loss = step_fn(state, images, targets)
+        float(loss)
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    top_ms = {e.key[:80]: e.self_device_time_total / 1e3 for e in ranked}
+    log(f"train step traced: wall {wall:.2f} ms, device busy {busy:.2f} ms over "
+        f"{len(kernels)} kernel names; top {json.dumps(top_ms)}")
+    return dict(traced_step_wall_ms=wall, traced_step_device_busy_ms=busy,
+                traced_step_kernel_names=len(kernels), traced_step_top_kernels_ms=top_ms)
+
+
+def hold_ties(eng, off, frames, res, res_off):
+    """The fp32 engine with every kernel on against every kernel off, on
+    the same weights. Before NMS, every anchor: conf within 1e-3 of its
+    value plus 1e-6, boxes within 1e-2 px; an anchor's class may differ only
+    where the kernels-off model's two largest class logits tie within 1e-6
+    of their size (about 8 fp32 ulps: B2 and B3 round apart from the plain
+    path, and a class flips only where two logits differ by less than
+    that). After NMS, frame by frame (``paired``): equal counts and class
+    multisets, scores within 1e-5 and boxes within 1e-2 px, except near-tie
+    swaps. A model a few steps from its init scores thousands of anchors
+    alike to 1e-7, so a frame's counts or classes may differ, but only
+    where a tie explains it, and such frames are counted by their tie: a
+    class flip at tied logits on an anchor that passes the threshold (its
+    box can suppress, or not, other boxes), or a tie at the ``pre_nms_topk``
+    cut (the kernels-off conf of the last candidate taken and the first left
+    out within twice the frame's largest conf delta, so the two engines can
+    take different candidates)."""
+    cfg = eng.config
+    got, want = model_outputs(eng, frames), model_outputs(off, frames)
+    conf_d = (got["conf"] - want["conf"]).abs()
+    conf_excess = (conf_d - (1e-3 * want["conf"] + 1e-6)).max().item()
+    conf_med = want["conf"].median().item()
+    box_d = (got["boxes_xyxy"] - want["boxes_xyxy"]).abs().max().item()
+    flips = got["cls"] != want["cls"]  # [N, A]
+    live_flip = (flips & (want["conf"] >= cfg.confidence_threshold)).any(dim=1).cpu().numpy()
+    ranked = want["conf"].sort(dim=1, descending=True).values
+    k = cfg.pre_nms_topk
+    cut_tie = ((ranked[:, k - 1] - ranked[:, k] <= 2 * conf_d.max(dim=1).values)
+               & (ranked[:, k] >= cfg.confidence_threshold)).cpu().numpy()
+    del got, want, ranked
+    scores = model_outputs(off, frames, reduce_scores=False)["scores"]
+    top2 = torch.logit(scores.double().topk(2, dim=-1).values)  # [N, A, 2]
+    del scores
+    gap = ((top2[..., 0] - top2[..., 1]) / top2[..., 0].abs().clamp_min(1.0))[flips]
+    n_flips, gap_max = int(flips.sum()), (gap.max().item() if gap.numel() else 0.0)
+    log(f"train_eval fp32 model outputs, every kernel on vs off: max |conf| delta "
+        f"{conf_d.max().item():.3g}, largest excess over 1e-3*conf + 1e-6 {conf_excess:.3g} "
+        f"(<= 0), median conf {conf_med:.3g}; max |box| delta {box_d:.3g} px (<= 1e-2); "
+        f"{n_flips} anchor(s) of another class, largest relative top-two logit gap there "
+        f"{gap_max:.3g} (<= 1e-6)")
+    assert conf_excess <= 0 and box_d <= 1e-2 and gap_max <= 1e-6, \
+        "train_eval model outputs differ with the kernels off"
+    differ, swaps, score_d, box_nms = paired(res, res_off, 0.5)
+    why = {i: [name for name, hit in (("class_flip", live_flip[i]), ("topk_cut", cut_tie[i]))
+               if hit] for i in differ}
+    for i in differ:
+        a = Counter(res.class_ids[i, :res.num_valid[i]].tolist())
+        b = Counter(res_off.class_ids[i, :res_off.num_valid[i]].tolist())
+        log(f"  frame {i}: {int(res.num_valid[i])} against {int(res_off.num_valid[i])} "
+            f"detections, classes only on: {dict(a - b)}, only off: {dict(b - a)}; ties: "
+            f"{why[i] or 'none'}")
+    by_tie = {name: sum(name in w for w in why.values()) for name in ("class_flip", "topk_cut")}
+    log(f"train_eval fp32 detections, every kernel on vs off: {len(res.num_valid) - len(differ)}"
+        f"/{len(res.num_valid)} frames with equal counts and classes, max |score| delta "
+        f"{score_d:.3g} (<= 1e-5), max |box| delta {box_nms:.3g} px (<= 1e-2), {swaps} near-tie "
+        f"swap(s); {len(differ)} frame(s) differ, by tie {json.dumps(by_tie)}")
+    assert all(why.values()) and score_d <= 1e-5 and box_nms <= 1e-2, \
+        "train_eval detections differ with the kernels off"
+    return dict(eval_model_conf_max_delta=conf_d.max().item(),
+                eval_model_conf_max_excess=conf_excess, eval_model_conf_median=conf_med,
+                eval_model_box_max_delta_px=box_d, eval_class_flips=n_flips,
+                eval_class_flip_max_rel_gap=gap_max, eval_all_off_frames_differ=len(differ),
+                eval_all_off_differ_by_tie=by_tie, eval_all_off_tie_swaps=swaps,
+                eval_all_off_score_max_delta=score_d, eval_all_off_box_max_delta_px=box_nms)
+
+
+def run_train(params):
+    """Training and evaluation ("train"): (1) one YOLOv8n step at 640 (nc
+    80, the seeded params, 2 labeled synthetic images): the loss and every
+    gradient leaf on the card (TF32 off) against the port on the CPU; (2)
+    ``make_train_step`` at 640, batch 16, 30 steps on ``synthetic_batch``
+    of 16 sources at 1280x1280: no kernel launched (B2 and B3 have no
+    backward), the last loss below the first, ms a step (device step and
+    host batch apart), images/s, peak memory, and one more step traced
+    (device time, top kernels); (3) the trained weights in a fp32
+    ``TorchYoloEngine`` (bucket 16) on 16 labeled 1080p frames: B1 twice,
+    B2, B3 and B6 once a step, model outputs and detections held against
+    every kernel off (``hold_ties``), detections against B1 off (equal),
+    map50 of both; (4) the train CLI's integration recipe (400 steps,
+    64², nc 4) on the card: its checkpoint's map50 above a random init's;
+    (5) the eval CLI on the full-width checkpoint (32 synthetic 1080p
+    frames, batch 16): its JSON."""
+    import contextlib
+    import io
+
+    from realtime_analytics_tpu_torch.config import DetectorConfig
+    from realtime_analytics_tpu_torch.engine.detector import TorchYoloEngine
+    from realtime_analytics_tpu_torch.ingest.synthetic import SyntheticSource
+    from realtime_analytics_tpu_torch.models.weights import params_from_jax, params_to_tree
+    from realtime_analytics_tpu_torch.models.yolo import build_yolo
+    from realtime_analytics_tpu_torch.ops import _cuda
+    from realtime_analytics_tpu_torch.parallel.train import (
+        anchor_centers,
+        detection_loss,
+        make_train_step,
+        named_tree,
+        step_numerics,
+    )
+    from realtime_analytics_tpu_torch.scripts import eval_detections
+    from realtime_analytics_tpu_torch.scripts import train as train_cli
+
+    hw, batch, steps = (HW, HW), 16, 30
+    out = {}
+
+    # (1) one step's loss and gradients, card against CPU
+    sources = [SyntheticSource(width=2 * HW, height=2 * HW, boxes=4, seed=i)
+               for i in range(batch)]
+    images, targets = train_cli.synthetic_batch(sources[:2], hw, 4)
+    side = {}
+    for dev in ("cuda", "cpu"):
+        model = params_from_jax(build_yolo("yolov8", "n", 80), params)
+        make_train_step(model, hw, device=dev)
+        anchors = torch.from_numpy(anchor_centers(hw)).to(dev)
+        tg = {k: torch.from_numpy(v).to(dev) for k, v in targets.items()}
+        with step_numerics():
+            loss = detection_loss(model, torch.from_numpy(images).to(dev), tg, anchors)
+            loss.backward()
+        grads = named_tree(model, {n: p.grad for n, p in model.named_parameters()})
+        side[dev] = (float(loss.detach()), tree_leaves(grads))
+        del model
+    (loss_card, g_card), (loss_cpu, g_cpu) = side["cuda"], side["cpu"]
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    grad_rel = max(rel_l2(a, b) for a, b in zip(g_card, g_cpu))
+    out.update(loss_card=loss_card, loss_cpu=loss_cpu, loss_rel_diff=loss_rel,
+               grad_leaves=len(g_card), grad_max_rel_l2=grad_rel)
+    log(f"train step card vs CPU: loss {loss_card:.7g} vs {loss_cpu:.7g}, rel {loss_rel:.3g} "
+        f"(<= 1e-5); {len(g_card)} gradient leaves, max rel L2 {grad_rel:.3g} (<= 1e-3)")
+    assert loss_rel <= 1e-5 and grad_rel <= 1e-3, "the card's train step disagrees with the CPU's"
+
+    # (2) full-width training: 30 steps at batch 16, no kernel launched
+    model = build_yolo("yolov8", "n", 80)
+    init_fn, step_fn = make_train_step(model, hw, learning_rate=2e-3, device="cuda")
+    state = init_fn(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.LAUNCHES.reset()
+    losses, step_ms, host_ms = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        images, targets = train_cli.synthetic_batch(sources, hw, 4)
+        t1 = time.perf_counter()
+        state, loss = step_fn(state, images, targets)
+        losses.append(float(loss))  # waits for the step
+        t2 = time.perf_counter()
+        host_ms.append((t1 - t0) * 1e3)
+        step_ms.append((t2 - t1) * 1e3)
+    train_launches = _cuda.LAUNCHES.snapshot()
+    mem = torch.cuda.max_memory_allocated() / 2**20
+    step_med = statistics.median(step_ms)
+    out.update(batch=batch, steps=steps, first_loss=losses[0], last_loss=losses[-1],
+               step_ms_median=step_med, step_ms_min=min(step_ms),
+               host_batch_ms_median=statistics.median(host_ms),
+               images_per_s=batch / step_med * 1e3,
+               images_per_s_with_host_batch=batch / (step_med + statistics.median(host_ms)) * 1e3,
+               max_memory_allocated_mib=mem, launches=train_launches)
+    log(f"train 640 b{batch}: loss {losses[0]:.4f} -> {losses[-1]:.4f} over {steps} steps; "
+        f"step {step_med:.2f} ms median, host batch {statistics.median(host_ms):.2f} ms; "
+        f"launches {json.dumps(train_launches)}")
+    assert all(v == 0 for v in train_launches.values()), "the train step launched a kernel"
+    assert losses[-1] < losses[0], "the loss did not go down"
+    tree = params_to_tree(model)
+    ckpt = saved_tree("yolov8n_train640.npz", tree)
+    out.update(trace_step(step_fn, state, *train_cli.synthetic_batch(sources, hw, 4)))
+    del model, state, init_fn, step_fn
+    torch.cuda.empty_cache()
+
+    # (3) the trained weights served through the kernels, fp32, bucket 16
+    frames, gts = labeled_frames(batch, (1080, 1920))
+    cfg = dict(precision="fp32", max_batch_size=batch, batch_buckets=[batch],
+               confidence_threshold=0.001)
+    eng = TorchYoloEngine(detector_config(**cfg), params=tree)
+    eng.predict_arrays(frames)
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.reset()
+    res = eng.predict_arrays(frames)
+    eval_launches = _cuda.LAUNCHES.snapshot()
+    require_counts("train_eval", eval_launches,
+                   {"row_gather": 2, "decode_v8": 1, "fused_stem": 1, "nms_keep": 1})
+    assert np.isfinite(res.boxes_xyxy).all() and (res.num_valid > 0).all()
+    off = TorchYoloEngine(detector_config(pallas_gather="off", pallas_decode="off",
+                                          pallas_stem="off", **cfg), params=tree)
+    res_off = off.predict_arrays(frames)
+    out.update(hold_ties(eng, off, frames, res, res_off))
+    # after NMS, B1 on against off with B2 and B3 on both sides: equal, as
+    # B1 is exact
+    b1_off = TorchYoloEngine(detector_config(pallas_gather="off", **cfg), params=tree)
+    _, score_d, box_d = hold("train_eval fp32 detections, B1 on vs off (B2, B3 on in both)",
+                             res, b1_off.predict_arrays(frames), score_tol=1e-5, box_tol=1e-3)
+    out.update(eval_map50=map50(rows_of(res), gts),
+               eval_map50_kernels_off=map50(rows_of(res_off), gts),
+               eval_b1_score_max_delta=score_d, eval_b1_box_max_delta_px=box_d,
+               eval_launches=eval_launches)
+    del eng, off, b1_off
+    torch.cuda.empty_cache()
+
+    # (4) the integration recipe of tests/test_train_eval_integration.py
+    recipe = str(ROOT / "build" / "chip_smoke" / "recipe64.npz")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main(["--steps", "400", "--batch", "4", "--nc", "4",
+                             "--boxes-per-image", "2", "--input-size", "64", "64",
+                             "--seed", "1", "--eval", "--log-every", "100", "--out", recipe])
+    recipe_s = time.perf_counter() - t0
+    log("train CLI recipe: " + " | ".join(buf.getvalue().strip().splitlines()))
+    assert rc == 0
+
+    def recipe_map(path):
+        src = SyntheticSource(width=64, height=64, boxes=2, seed=7)
+        frames64, gts64 = [], []
+        for _ in range(12):
+            ok, frame, gt, cls = src.read_labeled()
+            assert ok
+            frames64.append(frame[None])
+            gts64.append((np.asarray(gt, np.float32), np.asarray(cls, int)))
+        e = TorchYoloEngine(DetectorConfig(
+            model_path=path, model_type="yolov8", num_classes=4, input_size=[64, 64],
+            warmup=False, precision="fp32", max_batch_size=1, batch_buckets=[1],
+            pre_nms_topk=64, max_detections=8, confidence_threshold=0.05, device="cuda"))
+        return map50([next(rows_of(e.predict_arrays(f))) for f in frames64], gts64)
+
+    trained, random_init = recipe_map(recipe), recipe_map("__random__.pt")
+    out.update(recipe_s=recipe_s, recipe_map50=trained, random_init_map50=random_init)
+    log(f"train CLI recipe map50 {trained:.4f} vs random init {random_init:.4f} "
+        f"({recipe_s:.1f} s for 400 steps + evals)")
+    assert trained > random_init, "the recipe's training did not lift map50"
+
+    # (5) the eval CLI on the full-width checkpoint
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = eval_detections.main(["--model-path", ckpt, "--synthetic", "32",
+                                   "--synthetic-hw", "1080", "1920", "--input-size",
+                                   "640", "640", "--batch", "16", "--json"])
+    assert rc == 0
+    cli = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert cli["n_images"] == 32, cli
+    out.update(eval_cli_n_images=cli["n_images"], eval_cli_map50=cli["map50"],
+               eval_cli_n_detections=cli["n_detections"])
+    return {"train": train_launches, "train_eval": eval_launches}, out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the pipelines
+# ---------------------------------------------------------------------------
 
 
 def run_pipeline(detector, n_streams: int, seconds: float):
@@ -1917,6 +2266,11 @@ def main() -> int:
     paths.update(artifact_paths)
     log("artifact " + json.dumps(dict(artifact, card=card)))
     lap("artifact")
+    torch.cuda.empty_cache()
+    train_paths, train = run_train(params)
+    paths.update(train_paths)
+    log("train " + json.dumps(dict(train, card=card)))
+    lap("train")
 
     paths["pipeline"], pipe = run_pipeline(detector_config(
         model_path=saved_tree("yolov8n_seeded.npz", params), confidence_threshold=0.25,

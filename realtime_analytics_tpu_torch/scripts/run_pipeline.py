@@ -2,9 +2,10 @@
 
 Flag parity with the reference (scripts/run_pipeline.py:23-60), plus
 ``--broker`` to spawn the in-repo eventbus broker in-process when the config
-uses the eventbus transport (single-box demos without Kafka). The JAX
-package's ``--shards`` and ``--jax-profile`` are not ported (ROADMAP.md
-Queue A items 7 and 6).
+uses the eventbus transport (single-box demos without Kafka), and
+``--torch-profile DIR`` (a ``torch.profiler`` Chrome trace of the run, the
+JAX package's ``--jax-profile``). The JAX package's ``--shards`` is not
+ported (ROADMAP.md Queue A item 7).
 
     python -m realtime_analytics_tpu_torch.scripts.run_pipeline \\
         --config config/pipeline-sim.yaml --duration 30
@@ -37,6 +38,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--duration", type=float, default=None,
         help="run for N seconds then exit (default: run until SIGINT/SIGTERM)",
     )
+    parser.add_argument(
+        "--torch-profile", default=None, metavar="DIR",
+        help="capture a torch.profiler trace of the run into DIR",
+    )
     add_logging_args(parser)
     return parser
 
@@ -54,12 +59,15 @@ async def _amain(args) -> int:
         broker = EventBusBroker(host or "127.0.0.1", int(port or 9192))
         await broker.start()
 
+    from ..utils.profiling import torch_trace
+
     pipeline = AnalyticsPipeline(config)
     try:
-        if args.duration:
-            await pipeline.run_for(args.duration)
-        else:
-            await pipeline.run_forever()
+        with torch_trace(args.torch_profile):
+            if args.duration:
+                await pipeline.run_for(args.duration)
+            else:
+                await pipeline.run_forever()
     finally:
         if broker is not None:
             await broker.stop()

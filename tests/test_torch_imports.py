@@ -1,4 +1,4 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX, optax nor the JAX package.
 
 The runtime check runs in a subprocess: this test process already has JAX
 loaded (tests/conftest.py imports it first). The AST scan covers import
@@ -26,6 +26,7 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "optax" or m.startswith("optax.")
              or m == "realtime_analytics_tpu" or m.startswith("realtime_analytics_tpu."))
 print(len(names), bad)
 assert not bad, bad
@@ -41,7 +42,17 @@ assert {"realtime_analytics_tpu_torch.ops.int8",
         "realtime_analytics_tpu_torch.engine.export",
         "realtime_analytics_tpu_torch.scripts.export_engine",
         "realtime_analytics_tpu_torch.scripts.quantize_model",
-        "realtime_analytics_tpu_torch.scripts.export_temporal_model"} <= set(names), names
+        "realtime_analytics_tpu_torch.scripts.export_temporal_model",
+        "realtime_analytics_tpu_torch.parallel.train",
+        "realtime_analytics_tpu_torch.eval.detection_metrics",
+        "realtime_analytics_tpu_torch.utils.profiling",
+        "realtime_analytics_tpu_torch.scripts.train",
+        "realtime_analytics_tpu_torch.scripts.eval_detections",
+        "realtime_analytics_tpu_torch.scripts.gen_streams",
+        "realtime_analytics_tpu_torch.scripts.check_encoding",
+        "realtime_analytics_tpu_torch.scripts.simulate_data",
+        "realtime_analytics_tpu_torch.scripts.make_demo_video",
+        "realtime_analytics_tpu_torch.scripts.test_temporal_detector"} <= set(names), names
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
@@ -65,6 +76,6 @@ def test_no_jax_import_statement_anywhere_in_the_port():
     for path in SOURCES:
         for name in _imported_names(path):
             root = name.split(".")[0]
-            if root in ("jax", "jaxlib") or root == "realtime_analytics_tpu":
+            if root in ("jax", "jaxlib", "optax") or root == "realtime_analytics_tpu":
                 offenders.append(f"{path.relative_to(REPO)}: {name}")
     assert not offenders, offenders
