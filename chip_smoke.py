@@ -16,7 +16,8 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
    CUDA graph and the host's cost per call, beside ``torch.gather``'s; B2
    head decode: the three levels of the 640 head, N=32, bf16, in one launch
    with tied maxima planted, its device time and host cost beside the same
-   head decoded level by level, then fp32, class counts that take the
+   head decoded level by level, the same head through unaligned views (the
+   element instantiation at the main shape), then fp32, class counts that take the
    element instantiation, ragged levels, an unaligned view, one level, and
    NaN and inf logits, each printed with the instantiation it took; B3
    fused stem: N=32, 640 input, bf16 on the tensor cores at the v8n and v8s
@@ -27,7 +28,12 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
    select fp32 (the ONNX graph path's letterbox), 32 x 1080p -> 224x224
    fp32, the ResNet stretch, 64 x 1080p -> 224x224 and -> 112x112 fp32,
    the temporal clip stretches, and a 97x211 source, whose rows take the
-   element instantiation, each bit-equal to the plain version), timed with
+   element instantiation, each bit-equal to the plain version; B6 NMS keep
+   pass from the boxes: N=32, K=512 class-shifted candidates, IoUs exactly
+   at the threshold, a NaN box, all and none valid, a chain, K=1024, K=8400
+   on 2 and on 32 images (peak memory), bit-equal to the overlap matrix and
+   its sweeps, its two passes timed apart, beside the overlap build and B6
+   on the matrix that it replaced; the overlap entry on the same cases), timed with
    CUDA events next to its plain version, the one PyTorch call that computes
    the same function where there is one, and its bound (the larger of bytes
    over 3.35 TB/s and operations over the dtype's dense peak, H100 SXM data
@@ -38,9 +44,10 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
    engine with the kernels off (bf16 model outputs within the repo's bf16
    fidelity bound; bf16 detections with B1 + B2 off and fp32 detections
    with every kernel off, frame by frame); step time, frames/s and peak
-   memory; the host calls that wait for the card in a step
-   (``profile_step.py``'s trace) with NMS's keep pass as the fixpoint
-   sweeps and as B6;
+   memory; the host calls that wait for the card, the kernels and the
+   select + NMS stage of a step (``profile_step.py``) with NMS's keep pass
+   as the fixpoint sweeps, as the overlap build and B6 on the matrix, and
+   as B6 on the boxes;
 5. the YOLO device-resize step: the same engine with ``host_resize: off``
    on 32 synthetic 1280x720 frames (full frames -> B4 letterbox -> forward),
    held against ``pallas_preprocess: off``;
@@ -355,6 +362,16 @@ def check_decode(gen):
         offset += box.shape[1] * w
 
     cases = {"head": main}
+
+    def unaligned(t):  # the same values through a view 2 bytes past 16-byte alignment
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    # the element instantiation at the main shape: the same head, unaligned
+    elem_levels = [(unaligned(b), unaligned(c)) for b, c in levels]
+    cases["head_element"] = case("head, element", elem_levels, strides, "element")[1]
     small = [(20, 20), (10, 10), (5, 5)]
     cases["fp32"] = case("fp32", head(4, small, 80, f32), strides, "vec16")[1]
     cases["nc3"] = case("nc=3", head(4, small, 3, bf16), strides, "element")[1]
@@ -392,6 +409,7 @@ def check_decode(gen):
 
     ms, plain_ms = cuda_ms(run), cuda_ms(run_plain)
     by_level_ms = cuda_ms(run_by_level)
+    element_ms = cuda_ms(lambda: decode_v8_levels(elem_levels, strides))
     host = host_us(dict(kernel=run, by_level=run_by_level, op=run_op))
     anchors = sum(b.shape[1] * b.shape[2] for b, _ in levels) * N
     nbytes = anchors * ((64 + 80) * 2 + (4 + 1 + 1) * 4)
@@ -404,66 +422,184 @@ def check_decode(gen):
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
     log("B2 " + json.dumps(dict(
         row, anchors=anchors, bytes=nbytes, launches_per_head=1, by_level_ms=by_level_ms,
+        element_ms=element_ms,
+        element_device_us=graph_us(lambda: decode_v8_levels(elem_levels, strides)),
         device_us=graph_us(run), host_us=host["kernel"], op_host_us=host["op"],
         by_level_host_us=host["by_level"], cases=cases, card=CARD)))
     return row
 
 
+def device_split_us(fn, names, calls: int = 50) -> dict:
+    """Device microseconds a call of ``fn`` spends in each kernel whose
+    name contains one of ``names`` (``torch.profiler`` over ``calls``
+    calls); None where the trace shows no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for name in names:
+                if name in e.name:
+                    total[name] += e.time_range.end - e.time_range.start
+    return {name: (us / calls if us else None) for name, us in total.items()}
+
+
 def check_nms_keep(gen):
-    """B6 against its plain version (the fixpoint sweeps): keep bit-equal
-    at the main path's shape (N images, K = 512 candidates), at K = 1024,
-    at K = 8400 (every anchor of a 640 input: the rows in the scratch
-    buffer, nine keep words a lane), all valid, none valid, and on a chain where every rank overlaps the one
-    before it (the sweeps' worst case: one more sweep a rank)."""
-    from realtime_analytics_tpu_torch.ops.nms import nms_keep, nms_keep_plain
+    """B6 from the boxes (``nms_keep_boxes``) against its plain version
+    (the overlap matrix and the fixpoint sweeps): keep bit-equal at the
+    main path's shape (N images, K = 512 class-shifted candidates in
+    clusters, as a detector's top-K gives them; also with only the first 64
+    valid, as at conf 0.25), at IoUs exactly at the
+    threshold, with a NaN box, all valid, none valid, on a chain where every
+    rank overlaps the one before it (the sweeps' worst case: one more sweep
+    a rank), at K = 1024, and at K = 8400 (every anchor of a 640 input) on
+    2 images and on N images in chunks (held four images at a time); then
+    the overlap entry (``nms_keep``: the pack pass and the same chain)
+    against its sweeps. Times: the kernel, its two passes, the plain
+    version, the path it replaced (the overlap build and ``nms_keep``)."""
+    from realtime_analytics_tpu_torch.ops.nms import (
+        nms_keep,
+        nms_keep_boxes,
+        nms_keep_boxes_plain,
+        nms_keep_plain,
+        overlap_matrix,
+        scratch_chunk,
+    )
 
-    tri = {}
+    thr = 0.45  # the engines' default iou_threshold
 
-    def overlaps(n, k, p, valid_p):
-        if k not in tri:
-            tri[k] = torch.ones(k, k, dtype=torch.bool, device="cuda").tril(-1)
-        s = torch.rand(n, k, k, generator=gen, device="cuda") < p
-        valid = torch.rand(n, k, generator=gen, device="cuda") < valid_p
-        return (s & tri[k] & valid[:, :, None] & valid[:, None, :]).contiguous(), valid
+    def candidates(n, k, valid_p, objects=12):
+        """k boxes an image around ``objects`` objects (centre jitter 6 px,
+        size jitter 10%), 80 classes (a tenth off the object's), shifted
+        into class bands as batched_nms shifts them."""
+        dev = "cuda"
+        centre = torch.rand(n, objects, 2, generator=gen, device=dev) * 600 + 20
+        size = torch.rand(n, objects, 2, generator=gen, device=dev) * 180 + 12
+        obj_cls = torch.randint(0, 80, (n, objects), generator=gen, device=dev)
+        which = torch.randint(0, objects, (n, k), generator=gen, device=dev)
+        pick = which[..., None].expand(-1, -1, 2)
+        c = centre.gather(1, pick) + torch.randn(n, k, 2, generator=gen, device=dev) * 6
+        wh = size.gather(1, pick) * (1 + 0.1 * torch.randn(n, k, 2, generator=gen, device=dev))
+        boxes = torch.cat([c - wh / 2, c + wh / 2], -1)
+        cls = obj_cls.gather(1, which)
+        noise = torch.rand(n, k, generator=gen, device=dev) < 0.1
+        cls = torch.where(noise, torch.randint(0, 80, (n, k), generator=gen, device=dev), cls)
+        lo = boxes.min()
+        offset = torch.clamp_min(boxes.max() - lo, 8192.0) + 1.0
+        boxes = (boxes - lo) + (cls.to(boxes.dtype) * offset)[..., None]
+        valid = torch.rand(n, k, generator=gen, device=dev) < valid_p
+        return boxes.contiguous(), valid
+
+    def planted(n, k):
+        """Candidates with pairs whose IoU is exactly f32(0.45) (a 1 x 9 box
+        inside a 1 x 20) at ranks 0-1 and a NaN coordinate at rank k // 2."""
+        boxes, valid = candidates(n, k, 0.95)
+        boxes[:, :2] = torch.tensor([[0, 0, 1, 9], [0, 0, 1, 20]], dtype=torch.float32,
+                                    device="cuda")
+        boxes[:, k // 2, 1] = float("nan")
+        return boxes, valid
 
     def chain(n, k):
-        ov = torch.zeros(n, k, k, dtype=torch.bool, device="cuda")
-        ov[:, torch.arange(1, k), torch.arange(k - 1)] = True
-        return ov, torch.ones(n, k, dtype=torch.bool, device="cuda")
+        """Box i at x = 3i, 10 wide: IoU 7/13 with its neighbours, 4/16
+        with the next ones; greedy keeps every other rank."""
+        x = torch.arange(k, device="cuda", dtype=torch.float32)[None, :].expand(n, -1) * 3
+        boxes = torch.stack([x, torch.zeros_like(x), x + 10, torch.full_like(x, 10.0)], -1)
+        return boxes.contiguous(), torch.ones(n, k, dtype=torch.bool, device="cuda")
 
-    # p = 0.02: a candidate overlaps about 5 better-ranked ones on average
-    cases = {"main": overlaps(N, 512, 0.02, 0.95), "k1024": overlaps(N, 1024, 0.01, 0.95),
-             "k8400": overlaps(2, 8400, 0.001, 0.95),
-             "all_valid": overlaps(N, 512, 0.02, 1.0), "none_valid": overlaps(N, 512, 0.02, 0.0),
-             "chain": chain(N, 512)}
+    def prefix(n, k, valid_k):
+        """Candidates whose first ``valid_k`` are valid: scores sorted high
+        to low with most of the top K under the threshold, as at conf 0.25."""
+        boxes, valid = candidates(n, k, 1.0)
+        valid[:, valid_k:] = False
+        return boxes, valid
+
+    cases = {"main": candidates(N, 512, 0.95), "prefix64": prefix(N, 512, 64),
+             "edges": planted(N, 512),
+             "all_valid": candidates(N, 512, 1.0), "none_valid": candidates(N, 512, 0.0),
+             "chain": chain(N, 512), "k1024": candidates(N, 1024, 0.95),
+             "k8400": candidates(2, 8400, 0.95)}
     kept = {}
-    for name, (ov, valid) in cases.items():
-        got, want = nms_keep(ov, valid), nms_keep_plain(ov, valid)
+    for name, (boxes, valid) in cases.items():
+        got, want = nms_keep_boxes(boxes, valid, thr), nms_keep_boxes_plain(boxes, valid, thr)
         torch.cuda.synchronize()
-        assert torch.equal(got, want), f"B6 {name}: keep differs from the fixpoint"
+        assert torch.equal(got, want), f"B6 {name}: keep differs from the plain version"
         kept[name] = int(got.sum())
-    ov, valid = cases["main"]
-    k = valid.shape[1]
-    ms = cuda_ms(lambda: nms_keep(ov, valid), iters=200)
-    plain_ms = cuda_ms(lambda: nms_keep_plain(ov, valid), iters=20)
-    chain_ms = cuda_ms(lambda: nms_keep(*cases["chain"]), iters=50)
-    chain_plain_ms = cuda_ms(lambda: nms_keep_plain(*cases["chain"]), iters=2, warmup=1)
-    k8400_ms = cuda_ms(lambda: nms_keep(*cases["k8400"]), iters=20)
-    host = host_us(dict(kernel=lambda: nms_keep(ov, valid),
-                        op=lambda: torch.ops.rva.nms_keep(ov, valid)), calls=200)
-    # what the function reads: the matrix's strict lower triangle (set only
-    # for j < i; the kernel packs no word right of the diagonal), valid; and
-    # keep, written
-    nbytes = N * k * (k - 1) // 2 + 2 * N * k
-    b_ms, b_by = bound(nbytes, 0.0, torch.float32)
+    boxes, valid = cases["edges"]
+    got = nms_keep_boxes(boxes, valid, thr)
+    assert torch.equal(got[:, 1], valid[:, 1]), "B6: an IoU of exactly f32(0.45) must not suppress"
+    assert torch.equal(got[:, 256], valid[:, 256]), "B6: a NaN box must overlap nothing"
+    assert torch.equal(nms_keep_boxes(*cases["chain"], thr)[0].cpu(), torch.arange(512) % 2 == 0)
+
+    # N images at K = 8400: two chunks of words; no [N, K, K] tensor
+    big_boxes, big_valid = candidates(N, 8400, 0.95)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    big = nms_keep_boxes(big_boxes, big_valid, thr)
+    torch.cuda.synchronize()
+    k8400_n32_peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    for i in range(0, N, 4):
+        want = nms_keep_boxes_plain(big_boxes[i:i + 4], big_valid[i:i + 4], thr)
+        assert torch.equal(big[i:i + 4], want), f"B6 k8400 x {N}: images {i}..{i + 3} differ"
+    assert k8400_n32_peak_mb < 100.0, f"B6 at K = 8400: {k8400_n32_peak_mb} MB of scratch"
+
+    # the overlap entry: the pack pass, then the same chain
+    overlaps = {name: (overlap_matrix(b, v, thr), v) for name, (b, v) in cases.items()
+                if name != "k8400"}
+    for name, (ov, v) in overlaps.items():
+        assert torch.equal(nms_keep(ov, v), nms_keep_plain(ov, v)), f"B6 overlap entry {name}"
+
+    boxes, valid = cases["main"]
+    n, k = valid.shape
+
+    def old_path():  # the overlap build and B6 on the matrix, as batched_nms ran before
+        return nms_keep(overlap_matrix(boxes, valid, thr), valid)
+
+    ms = cuda_ms(lambda: nms_keep_boxes(boxes, valid, thr), iters=200)
+    plain_ms = cuda_ms(lambda: nms_keep_boxes_plain(boxes, valid, thr), iters=20)
+    old_path_ms = cuda_ms(old_path, iters=50)
+    ov_main = overlaps["main"][0]
+    overlap_entry_ms = cuda_ms(lambda: nms_keep(ov_main, valid), iters=200)
+    prefix64_ms = cuda_ms(lambda: nms_keep_boxes(*cases["prefix64"], thr), iters=200)
+    chain_ms = cuda_ms(lambda: nms_keep_boxes(*cases["chain"], thr), iters=50)
+    chain_plain_ms = cuda_ms(lambda: nms_keep_boxes_plain(*cases["chain"], thr), iters=2,
+                             warmup=1)
+    k8400_ms = cuda_ms(lambda: nms_keep_boxes(*cases["k8400"], thr), iters=20)
+    k8400_n32_ms = cuda_ms(lambda: nms_keep_boxes(big_boxes, big_valid, thr), iters=5,
+                           warmup=1)
+    passes = ("nms_mask_kernel", "nms_chain_kernel")
+    split = device_split_us(lambda: nms_keep_boxes(boxes, valid, thr), passes)
+    split8400 = device_split_us(lambda: nms_keep_boxes(*cases["k8400"], thr), passes, calls=10)
+    host = host_us(dict(kernel=lambda: nms_keep_boxes(boxes, valid, thr),
+                        op=lambda: torch.ops.rva.nms_keep_boxes(boxes, valid, thr)), calls=200)
+    # the work: every pair of an image once, about 12 fp32 operations
+    # each; the bytes: the boxes and valid read, keep written
+    pairs = n * k * (k - 1) // 2
+    nbytes = n * k * 16 + 2 * n * k
+    b_ms, b_by = bound(nbytes, 12.0 * pairs, torch.float32)
     row = dict(name="nms_keep", route="cuda", source="realtime_analytics_tpu_torch/csrc/nms.cu",
-               replaces="realtime_analytics_tpu/ops/nms.py:143", max_abs_err=0.0, ms=ms,
+               replaces="realtime_analytics_tpu/ops/nms.py:134", max_abs_err=0.0, ms=ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
     log("B6 " + json.dumps(dict(
-        row, shape=[N, k, k], bytes=nbytes, bit_equal=list(cases), kept=kept,
-        device_us=graph_us(lambda: nms_keep(ov, valid)), host_us=host["kernel"],
-        op_host_us=host["op"], chain_ms=chain_ms, chain_plain_ms=chain_plain_ms,
-        k8400_ms=k8400_ms, card=CARD)))
+        row, shape=[n, k, 4], pairs=pairs, bytes=nbytes, bit_equal=list(cases) + [
+            f"k8400_x{N}"] + [f"overlap_{name}" for name in overlaps], kept=kept,
+        old_path_ms=old_path_ms, overlap_entry_ms=overlap_entry_ms,
+        device_us=graph_us(lambda: nms_keep_boxes(boxes, valid, thr)),
+        mask_us=split["nms_mask_kernel"], chain_us=split["nms_chain_kernel"],
+        host_us=host["kernel"], op_host_us=host["op"], prefix64_ms=prefix64_ms,
+        prefix64_device_us=graph_us(lambda: nms_keep_boxes(*cases["prefix64"], thr)),
+        chain_ms=chain_ms,
+        chain_plain_ms=chain_plain_ms, k8400_ms=k8400_ms,
+        k8400_mask_us=split8400["nms_mask_kernel"], k8400_chain_us=split8400["nms_chain_kernel"],
+        k8400_n32_ms=k8400_n32_ms, k8400_n32_peak_mb=k8400_n32_peak_mb,
+        k8400_n32_chunk=scratch_chunk(N, 8400), card=CARD)))
     return row
 
 
@@ -797,23 +933,39 @@ def run_engine(params, frames):
 
 
 def host_waits(eng, frames):
-    """Host calls that wait for the card, a main step (``profile_step.py``'s
-    trace over 2 steps): with NMS's keep pass as the fixpoint sweeps (the
-    step before B6: a wait a sweep) and as B6."""
+    """A main step with NMS's keep pass three ways: the fixpoint sweeps (a
+    host wait a sweep), the overlap build and B6 on the matrix
+    (``nms_keep``: the path before B6 took the boxes), and B6 on the boxes.
+    For each, ``profile_step.py``'s trace over 2 steps (host calls that wait
+    for the card, kernels and device ms a step) and its select + NMS stage
+    (host clock, synchronised, median of 10); B6 on the boxes is read again
+    last, so that a drift of the host shows."""
     from realtime_analytics_tpu_torch.ops import nms
-    from realtime_analytics_tpu_torch.scripts.profile_step import trace
+    from realtime_analytics_tpu_torch.scripts.profile_step import stage_times, trace
 
-    kernel = nms.nms_keep
-    nms.nms_keep = nms.nms_keep_plain
+    kernel = nms.nms_keep_boxes
+    variants = dict(
+        b6=kernel, overlap_b6=lambda b, v, t: nms.nms_keep(nms.overlap_matrix(b, v, t), v),
+        sweeps=nms.nms_keep_boxes_plain)
+    out = {}
     try:
-        sweeps = trace(eng, frames, 2)["host_waits_per_step"]
+        for name, fn in variants.items():
+            nms.nms_keep_boxes = fn
+            tr = trace(eng, frames, 2)
+            out[name] = dict(
+                host_waits=tr["host_waits_per_step"],
+                host_waits_total=sum(tr["host_waits_per_step"].values()),
+                kernels_per_step=tr["kernels_per_step"],
+                device_ms_per_step=tr["device_ms_per_step"],
+                select_nms_ms=stage_times(eng, frames, 10)["select_nms"])
     finally:
-        nms.nms_keep = kernel
-    b6 = trace(eng, frames, 2)["host_waits_per_step"]
-    out = dict(sweeps=sweeps, sweeps_total=sum(sweeps.values()), b6=b6,
-               b6_total=sum(b6.values()))
+        nms.nms_keep_boxes = kernel
+    out["b6"]["select_nms_ms_again"] = stage_times(eng, frames, 10)["select_nms"]
     log("main step host waits " + json.dumps(dict(out, card=CARD)))
-    assert out["b6_total"] < out["sweeps_total"], "B6 must remove the sweeps' host waits"
+    assert out["b6"]["host_waits_total"] < out["sweeps"]["host_waits_total"], \
+        "B6 must remove the sweeps' host waits"
+    assert out["b6"]["kernels_per_step"] < out["overlap_b6"]["kernels_per_step"], \
+        "B6 on the boxes must take the overlap build's kernels out of the step"
     return out
 
 

@@ -7,15 +7,18 @@ once:
   1. top-K candidates (K = ``pre_topk``) by a STABLE descending sort, so
      tied scores go to the lowest index (``torch.topk`` promises no order
      among ties; ``jax.lax.top_k`` takes the lowest index first);
-  2. one IoU matrix per image [K, K]; suppression is strict, ``iou > thr``;
-  3. greedy suppression: the keep mask is the unique fixpoint of
-     ``keep = valid & ~(overlap @ keep > 0)`` (equal to greedy NMS, because
-     ``overlap`` only links a candidate to better-ranked ones). On the card
-     kernel B6 (``csrc/nms.cu``, ``nms_keep``) computes it in one launch,
-     with no host wait; the plain version (``nms_keep_plain``, what the CPU
-     runs) sweeps it until nothing changes, one batched matmul and one host
-     sync a sweep, as the reference's ``lax.while_loop`` sweeps on device;
-  4. kept rows compacted by a stable argsort of ``~keep`` into ``max_det``
+  2. greedy suppression: candidate i is dropped when a kept better-ranked
+     candidate j has ``iou(i, j) > thr`` (strict). The keep mask is the
+     unique fixpoint of ``keep = valid & ~(overlap @ keep > 0)`` over the
+     [K, K] overlap matrix, which the reference builds and sweeps on
+     device. On the card kernel B6 (``csrc/nms.cu``, ``nms_keep_boxes``)
+     computes it from the boxes: the IoU bits packed to words across the
+     card, then a chain of 32-rank steps, one block an image, with no
+     [N, K, K] tensor and no host wait; the plain version
+     (``nms_keep_boxes_plain``, what the CPU runs) builds the overlap
+     matrix and sweeps it until nothing changes, one batched matmul and
+     one host sync a sweep, as the reference's ``lax.while_loop`` sweeps;
+  3. kept rows compacted by a stable argsort of ``~keep`` into ``max_det``
      padded slots, plus a validity count.
 
 For class-aware NMS the boxes are shifted per class by an offset taken from
@@ -24,9 +27,12 @@ the reference that the port matches. Both payload gathers (top-K boxes and
 the compaction payload) go through kernel B1 (``ops/gather.py``) unless
 ``gather_impl="torch"``.
 
-``nms_keep`` is also the registered op ``rva::nms_keep`` (``ops/_cuda.py``),
-which an exported step keeps as one node: the kernel on CUDA tensors, the
-plain sweeps on CPU ones.
+``nms_keep_boxes`` is also the registered op ``rva::nms_keep_boxes``, which
+an exported step keeps as one node: the kernel on CUDA tensors, the plain
+version on CPU ones. ``nms_keep`` (op ``rva::nms_keep``) takes a ready
+overlap matrix instead, as the artifacts of earlier versions of the port
+call it; on the card it packs the matrix into B6's words and runs the same
+chain. Either entry counts one ``nms_keep`` launch a call.
 """
 
 from __future__ import annotations
@@ -40,9 +46,12 @@ from .boxes import iou_matrix
 from .gather import row_gather
 
 _CLASS_OFFSET = 8192.0  # class-shift floor (actual offset adapts to coords)
-SMEM_ROWS = 1024  # K up to which B6 packs the rows in shared memory (csrc/nms.cu)
+SMEM_ROWS = 1024  # K up to which B6's chain stages an image's words in shared memory
+# B6's mask words of one pair of launches; a batch whose words exceed it
+# runs in chunks of images (N = 32 at K = 8400: two chunks, 71 MB)
+SCRATCH_BYTES = 80 << 20
 
-_launch = None  # the bound C entry, set at the first launch
+_launch = {}  # the bound C entries, by name, set at their first launch
 
 
 def nms_keep_plain(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -64,8 +73,8 @@ def nms_keep(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Greedy suppression: overlap [N, K, K] bool, set at [i, j] only for j
     ranked before i (candidate i overlaps the better j); valid [N, K] bool.
     Returns keep [N, K] bool: valid candidates not overlapping a kept
-    better one. On CUDA tensors kernel B6 (one launch); on CPU ones the
-    plain sweeps."""
+    better one. On CUDA tensors kernel B6 (its pack pass, then its chain:
+    one count); on CPU ones the plain sweeps."""
     if _cuda.routed_through_ops():
         return torch.ops.rva.nms_keep(overlap, valid)
     if overlap.device.type == "cpu" and valid.device.type == "cpu":
@@ -73,11 +82,45 @@ def nms_keep(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return _nms_keep_cuda(overlap, valid)
 
 
+def mask_words(k: int) -> int:
+    """B6's mask words of one image: 32 a tile of the upper triangle of
+    ceil(K / 32) x ceil(K / 32) tiles (``csrc/nms.cu``)."""
+    w = -(-k // 32)
+    return 32 * w * (w + 1) // 2
+
+
+def scratch_chunk(n: int, k: int) -> int:
+    """Images a pair of B6 launches takes: as many as ``SCRATCH_BYTES`` of
+    mask words hold (at least one), the batch cut into equal chunks."""
+    most = max(1, SCRATCH_BYTES // (4 * mask_words(k)))
+    parts = -(-n // most)
+    return max(1, -(-n // parts))
+
+
+def _launch_b6(entry: str, source: torch.Tensor, valid: torch.Tensor, *extra) -> torch.Tensor:
+    """Allocate keep and the scratch words, call C entry ``entry`` (device,
+    source, valid, keep, scratch, n, k, *extra, chunk, stream) and count one
+    ``nms_keep`` launch."""
+    dev = valid.device
+    n, k = valid.shape
+    chunk = scratch_chunk(n, k)
+    keep = torch.empty((n, k), dtype=torch.bool, device=dev)
+    scratch = torch.empty(chunk * mask_words(k), dtype=torch.int32, device=dev)
+    fn = _launch.get(entry)
+    if fn is None:
+        fn = _launch[entry] = _cuda.entry(entry)
+    rc = fn(dev.index, source.data_ptr(), valid.data_ptr(), keep.data_ptr(), scratch.data_ptr(),
+            n, k, *extra, chunk, _cuda.stream_of(dev.index))
+    if rc:
+        _cuda.fail(rc, entry)
+    _cuda.LAUNCHES.add("nms_keep")
+    return keep
+
+
 def _nms_keep_cuda(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """The checks and the launch on CUDA tensors (the wrapper's and the
-    op's)."""
-    global _launch
-    dev = _cuda.require_cuda("nms_keep", overlap, valid)
+    op's): B6's pack pass, then its chain."""
+    _cuda.require_cuda("nms_keep", overlap, valid)
     if overlap.dtype != torch.bool or valid.dtype != torch.bool:
         raise TypeError(f"nms_keep: overlap and valid must be bool, got {overlap.dtype} "
                         f"and {valid.dtype}")
@@ -87,19 +130,7 @@ def _nms_keep_cuda(overlap: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
                          f"{tuple(overlap.shape)} and {tuple(valid.shape)}")
     if not (overlap.is_contiguous() and valid.is_contiguous()):
         raise ValueError("nms_keep: overlap and valid must be contiguous")
-    n, k = valid.shape
-    keep = torch.empty_like(valid)
-    scratch = (torch.empty(n * k * (-(-k // 32)), dtype=torch.int32, device=dev)
-               if k > SMEM_ROWS else None)
-    if _launch is None:
-        _launch = _cuda.entry("rva_nms_keep")
-    rc = _launch(dev.index, overlap.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-                 None if scratch is None else scratch.data_ptr(), n, k,
-                 _cuda.stream_of(dev.index))
-    if rc:
-        _cuda.fail(rc, "nms_keep")
-    _cuda.LAUNCHES.add("nms_keep")
-    return keep
+    return _launch_b6("rva_nms_keep", overlap, valid)
 
 
 @torch.library.custom_op("rva::nms_keep", mutates_args=(), device_types="cpu")
@@ -114,6 +145,70 @@ def _(overlap, valid):
 
 @_nms_keep_op.register_fake
 def _(overlap, valid):
+    return torch.empty_like(valid)
+
+
+def overlap_matrix(boxes: torch.Tensor, valid: torch.Tensor,
+                   iou_threshold: float) -> torch.Tensor:
+    """[N, K, K] bool: candidate i overlaps the better-ranked j (IoU over
+    the threshold, strict), both valid: what ``nms_keep`` takes."""
+    k = boxes.shape[1]
+    iou = iou_matrix(boxes, boxes)  # [N, K, K]
+    rank = torch.arange(k, device=boxes.device)
+    outranked = rank[None, :, None] > rank[None, None, :]  # j before i
+    return (iou > iou_threshold) & outranked & valid[:, None, :] & valid[:, :, None]
+
+
+def nms_keep_boxes_plain(boxes: torch.Tensor, valid: torch.Tensor,
+                         iou_threshold: float) -> torch.Tensor:
+    """Plain PyTorch version of ``nms_keep_boxes``: the overlap matrix,
+    then the fixpoint sweeps of ``nms_keep_plain``."""
+    return nms_keep_plain(overlap_matrix(boxes, valid, iou_threshold), valid)
+
+
+def nms_keep_boxes(boxes: torch.Tensor, valid: torch.Tensor,
+                   iou_threshold: float) -> torch.Tensor:
+    """Greedy suppression from the boxes: boxes [N, K, 4] f32 xyxy in rank
+    order (class-shifted where NMS is class-aware), valid [N, K] bool.
+    Returns keep [N, K] bool, bit-equal to ``nms_keep_boxes_plain``: on
+    CUDA tensors kernel B6 (two launches, one count), on CPU ones the plain
+    version. ``iou_threshold`` is compared in float32, as PyTorch compares
+    an f32 tensor with a Python number."""
+    if _cuda.routed_through_ops():
+        return torch.ops.rva.nms_keep_boxes(boxes, valid, float(iou_threshold))
+    if boxes.device.type == "cpu" and valid.device.type == "cpu":
+        return nms_keep_boxes_plain(boxes, valid, iou_threshold)
+    return _nms_keep_boxes_cuda(boxes, valid, iou_threshold)
+
+
+def _nms_keep_boxes_cuda(boxes: torch.Tensor, valid: torch.Tensor,
+                         iou_threshold: float) -> torch.Tensor:
+    _cuda.require_cuda("nms_keep_boxes", boxes, valid)
+    if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"nms_keep_boxes: boxes must be float32 and valid bool, got "
+                        f"{boxes.dtype} and {valid.dtype}")
+    if boxes.dim() != 3 or valid.dim() != 2 or tuple(boxes.shape) != (
+            valid.shape[0], valid.shape[1], 4):
+        raise ValueError(f"nms_keep_boxes: need boxes [N, K, 4] and valid [N, K], got "
+                         f"{tuple(boxes.shape)} and {tuple(valid.shape)}")
+    if not (boxes.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("nms_keep_boxes: boxes and valid must be contiguous")
+    return _launch_b6("rva_nms_keep_boxes", boxes, valid, float(iou_threshold))
+
+
+@torch.library.custom_op("rva::nms_keep_boxes", mutates_args=(), device_types="cpu")
+def _nms_keep_boxes_op(boxes: torch.Tensor, valid: torch.Tensor,
+                       iou_threshold: float) -> torch.Tensor:
+    return nms_keep_boxes_plain(boxes, valid, iou_threshold).clone()
+
+
+@_nms_keep_boxes_op.register_kernel("cuda")
+def _(boxes, valid, iou_threshold):
+    return _nms_keep_boxes_cuda(boxes, valid, iou_threshold)
+
+
+@_nms_keep_boxes_op.register_fake
+def _(boxes, valid, iou_threshold):
     return torch.empty_like(valid)
 
 
@@ -163,7 +258,8 @@ def batched_nms(
     top_classes = torch.gather(class_ids, 1, top_idx).to(torch.int32)
     valid = top_scores > 0.0
 
-    # 2. overlap matrix (class-aware: shift classes into disjoint bands)
+    # 2. greedy suppression (class-aware: shift classes into disjoint
+    #    bands): B6 on the card, the overlap matrix and its sweeps on the CPU
     nms_boxes = top_boxes
     if not class_agnostic:
         lo = top_boxes.min()
@@ -171,15 +267,9 @@ def batched_nms(
         nms_boxes = (top_boxes - lo) + (
             top_classes.to(top_boxes.dtype) * offset
         )[..., None]
-    iou = iou_matrix(nms_boxes, nms_boxes)  # [N, K, K]
-    rank = torch.arange(k, device=dev)
-    outranked = rank[None, :, None] > rank[None, None, :]  # j before i
-    overlap = (iou > iou_threshold) & outranked & valid[:, None, :] & valid[:, :, None]
+    keep = nms_keep_boxes(nms_boxes, valid, iou_threshold)
 
-    # 3. greedy suppression: B6 on the card, the fixpoint sweeps on the CPU
-    keep = nms_keep(overlap, valid)
-
-    # 4. stable compaction, kept rows first in score order
+    # 3. stable compaction, kept rows first in score order
     d = min(max_det, k)
     order_d = torch.argsort((~keep).to(torch.uint8), dim=-1, stable=True)[:, :d]
     payload = torch.cat(

@@ -184,7 +184,7 @@ def test_programs_keep_every_kernel_as_one_node_and_no_weights(artifact):
     for p in meta["programs"]:
         ep, targets = _graph_targets(path, p["name"])
         assert targets.count("rva.row_gather.default") == 2
-        assert targets.count("rva.nms_keep.default") == 1
+        assert targets.count("rva.nms_keep_boxes.default") == 1
         assert targets.count("rva.decode_v8_levels.default") == 1
         assert targets.count("rva.fused_stem_p1p2.default") == 1
         # the CPU's auto letterbox is the plain preprocess (B4 runs on the
@@ -396,7 +396,7 @@ def test_yolo_kinds_roundtrip_bit_identical(kind, params, tmp_path):
     _same_detections(live, served, frames)
     _, targets = _graph_targets(path, meta["programs"][0]["name"])
     assert targets.count("rva.row_gather.default") == 2
-    assert targets.count("rva.nms_keep.default") == 1
+    assert targets.count("rva.nms_keep_boxes.default") == 1
     assert targets.count("rva.decode_v8_levels.default") == 1
     assert targets.count("rva.fused_stem_p1p2.default") == 1
     assert targets.count("rva.letterbox.default") == (kind == "device_letterbox")

@@ -57,7 +57,7 @@ def test_yolo_kinds_roundtrip_bit_identical(kind, tmp_path, monkeypatch):
     _same_detections(live, served, frames)
     _, targets = _graph_targets(path, meta["programs"][0]["name"])
     assert targets.count("rva.row_gather.default") == 2
-    assert targets.count("rva.nms_keep.default") == 1
+    assert targets.count("rva.nms_keep_boxes.default") == 1
     assert targets.count("rva.decode_v8_levels.default") == (kind == "int8")
     assert targets.count("rva.fused_stem_p1p2.default") == 0  # int8 and v5: no fused stem
     _hold_no_weights(path, meta)

@@ -16,7 +16,8 @@ exact, content within one uint8 level (plus one bf16 ulp in bf16) on under
 1% of the pixels, and at the new shapes bit for bit: both versions run the
 same tables in the same fp32 order without FMA contraction, and a tap of
 weight 0 that the kernel leaves out changes no bit; B6 bit-equal (a boolean
-mask: greedy is the fixpoint's unique solution). Each registered ``rva`` op
+mask: greedy is the fixpoint's unique solution), from the boxes and from an
+overlap matrix. Each registered ``rva`` op
 on CUDA tensors equals its wrapper bit for bit and counts one launch.
 """
 
@@ -41,7 +42,16 @@ from realtime_analytics_tpu_torch.ops.letterbox import (
     letterbox_plan,
     stretch_spec,
 )
-from realtime_analytics_tpu_torch.ops.nms import nms_keep, nms_keep_plain
+from realtime_analytics_tpu_torch.ops import nms as nms_mod
+from realtime_analytics_tpu_torch.ops.nms import (
+    batched_nms,
+    mask_words,
+    nms_keep,
+    nms_keep_boxes,
+    nms_keep_boxes_plain,
+    nms_keep_plain,
+    scratch_chunk,
+)
 from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
 from realtime_analytics_tpu_torch.ops.stem import (
     fused_stem_p1p2,
@@ -407,6 +417,106 @@ def test_nms_keep_rejects_what_it_does_not_take(card):
     assert _cuda.LAUNCHES.snapshot()["nms_keep"] == before
 
 
+def _nms_boxes(card, n, k, valid_p, seed, classes=0, nan=False, edge=False):
+    """Seeded candidate boxes [n, k, 4] in rank order (class-shifted as
+    ``batched_nms`` shifts them when ``classes``), valid [n, k]; ``edge``
+    plants pairs whose IoU is exactly f32(0.45) (a 1 x 9 box inside a 1 x
+    20), ``nan`` a NaN coordinate."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    xy = torch.rand(n, k, 2, generator=g, device=card) * 600.0
+    wh = torch.rand(n, k, 2, generator=g, device=card) * 120.0 + 4.0
+    boxes = torch.cat([xy, xy + wh], -1)
+    if edge and k >= 4:
+        boxes[:, :4] = torch.tensor([[0, 0, 1, 9], [0, 0, 1, 20], [5, 5, 6, 14], [5, 5, 6, 25]],
+                                    dtype=torch.float32, device=card)
+    if classes:
+        cls = torch.randint(0, classes, (n, k), generator=g, device=card)
+        lo = boxes.min()
+        offset = torch.clamp_min(boxes.max() - lo, 8192.0) + 1.0
+        boxes = (boxes - lo) + (cls.to(boxes.dtype) * offset)[..., None]
+    if nan:
+        boxes[:, k // 2, 1] = float("nan")
+    valid = torch.rand(n, k, generator=g, device=card) < valid_p
+    return boxes.contiguous(), valid
+
+
+@pytest.mark.parametrize("n,k,valid_p,classes,nan,edge", [
+    (32, 512, 0.9, 0, False, False),  # the main path's shape
+    (32, 512, 0.9, 80, False, True),  # class-aware, a threshold edge
+    (32, 512, 1.0, 0, True, False),   # all valid, a NaN box
+    (32, 512, 0.0, 0, False, False),  # none valid
+    (3, 1, 1.0, 0, False, False), (4, 33, 0.8, 3, False, True),
+    (8, 1024, 0.9, 0, True, True),    # the largest K staged in shared memory
+    (4, 1025, 0.9, 5, False, False),  # the words in the scratch buffer
+    (2, 4099, 0.9, 0, True, False),
+    (2, 8400, 0.95, 80, False, True),  # every anchor of a 640 input as a candidate
+])
+def test_nms_keep_boxes_bit_equal_to_plain(card, n, k, valid_p, classes, nan, edge):
+    boxes, valid = _nms_boxes(card, n, k, valid_p, seed=n + k, classes=classes, nan=nan,
+                              edge=edge)
+    for thr in (0.45, 0.3):
+        before = _cuda.LAUNCHES.snapshot()["nms_keep"]
+        got = nms_keep_boxes(boxes, valid, thr)
+        assert _cuda.LAUNCHES.snapshot()["nms_keep"] == before + 1
+        want = nms_keep_boxes_plain(boxes, valid, thr)
+        assert torch.equal(got, want), f"K={k} thr={thr}: {(got != want).sum().item()} differ"
+        if nan:  # the NaN box overlaps nothing: kept where valid
+            assert torch.equal(got[:, k // 2], valid[:, k // 2])
+        if edge and not classes and thr == 0.45:  # rank 1's IoU with rank 0 is f32(0.45)
+            assert torch.equal(got[:, 1], valid[:, 1])
+
+
+@pytest.mark.parametrize("n,k,budget_images", [(8, 1025, 3), (5, 33, 2), (32, 8400, None)])
+def test_nms_keep_boxes_in_chunks_of_images(card, monkeypatch, n, k, budget_images):
+    """A batch whose words exceed the scratch budget runs chunk by chunk
+    (N = 32 at K = 8400: two chunks of 16 under the default budget),
+    held against the plain version four images at a time."""
+    if budget_images:
+        monkeypatch.setattr(nms_mod, "SCRATCH_BYTES", budget_images * 4 * mask_words(k))
+        assert scratch_chunk(n, k) < n
+    else:
+        assert scratch_chunk(n, k) == 16
+    boxes, valid = _nms_boxes(card, n, k, 0.95, seed=k, classes=80)
+    got = nms_keep_boxes(boxes, valid, 0.45)
+    for i in range(0, n, 4):
+        assert torch.equal(got[i:i + 4], nms_keep_boxes_plain(boxes[i:i + 4], valid[i:i + 4], 0.45))
+
+
+def test_nms_keep_boxes_builds_no_k_by_k_tensor(card):
+    """``batched_nms`` at N = 32, K = 8400 on the card: its peak memory
+    stays far under one [N, K, K] bool (2.26 GB)."""
+    g = torch.Generator(device=card).manual_seed(5)
+    n, m = 32, 8400
+    xy = torch.rand(n, m, 2, generator=g, device=card) * 600.0
+    boxes = torch.cat([xy, xy + torch.rand(n, m, 2, generator=g, device=card) * 60 + 4], -1)
+    scores = torch.rand(n, m, generator=g, device=card)
+    cls = torch.randint(0, 80, (n, m), generator=g, device=card, dtype=torch.int32)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    batched_nms(boxes, scores, cls, iou_threshold=0.45, pre_topk=m, class_agnostic=False)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 100e6
+
+
+def test_nms_keep_boxes_rejects_what_it_does_not_take(card):
+    boxes, valid = _nms_boxes(card, 2, 64, 0.9, seed=1)
+    before = _cuda.LAUNCHES.snapshot()["nms_keep"]
+    with pytest.raises(ValueError):  # a CPU tensor beside a CUDA one
+        nms_keep_boxes(boxes, valid.cpu(), 0.45)
+    with pytest.raises(TypeError):
+        nms_keep_boxes(boxes.double(), valid, 0.45)
+    with pytest.raises(TypeError):
+        nms_keep_boxes(boxes, valid.to(torch.uint8), 0.45)
+    with pytest.raises(ValueError):
+        nms_keep_boxes(boxes[:, :, :3], valid, 0.45)
+    with pytest.raises(ValueError):
+        nms_keep_boxes(boxes[:, :32], valid, 0.45)
+    with pytest.raises(ValueError):
+        nms_keep_boxes(boxes.transpose(0, 1).contiguous().transpose(0, 1), valid, 0.45)
+    assert _cuda.LAUNCHES.snapshot()["nms_keep"] == before
+
+
 def _launches_of(name, fn):
     before = _cuda.LAUNCHES.snapshot()[name]
     out = fn()
@@ -445,3 +555,7 @@ def test_each_op_equals_its_wrapper_on_the_card(card):
     ov, valid = _overlaps(card, 4, 128, 0.05, 0.9, seed=2)
     got = _launches_of("nms_keep", lambda: torch.ops.rva.nms_keep(ov, valid))
     assert torch.equal(got, nms_keep(ov, valid))
+    boxes, valid = _nms_boxes(card, 4, 200, 0.9, seed=3, classes=3)
+    got = _launches_of("nms_keep",
+                       lambda: torch.ops.rva.nms_keep_boxes(boxes, valid, 0.45))
+    assert torch.equal(got, nms_keep_boxes(boxes, valid, 0.45))
