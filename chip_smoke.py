@@ -117,7 +117,28 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
 14. the pipelines: ``AnalyticsPipeline`` with 32 pooled ``synthetic://``
     1080p streams at 25 fps on YOLOv8n for about 15 s, then 8 such streams
     on ResNet-50 with ``host_resize: off`` for about 5 s;
-15. the ``{"kernels": [...]}`` line, the card line, and last
+15. the stream-sharding supervisor and the dashboard ("shards"): the same
+    32 streams and YOLOv8n written to a YAML config (an ``eventbus`` sink on
+    a free local port, no frames in the events) and served by the port's CLI
+    as a user runs it, ``python -m
+    realtime_analytics_tpu_torch.scripts.run_pipeline --shards K --broker``,
+    at K = 2 and K = 4: K pipeline processes that share the card and publish
+    to one event bus. Each run waits until every shard logs "Pipeline
+    started" (``startup_s``), counts every stream's events on the bus with
+    the port's ``EventBusSubscriber`` (15 s at K = 2, 10 s at K = 4), checks
+    that ``nvidia-smi`` lists K more contexts on the card than before the
+    run (it may not name the shards' pids inside a container), that every
+    shard logs ``shard i/K: serving 32/K streams``, and that the supervisor
+    exits 0 on SIGTERM; it reports each shard's last ``[batcher]`` stats
+    beside the in-process pipeline of phase 14. During the K = 2 window the
+    port's ``DashboardServer`` runs in this process on the same bus: the
+    first ``/ws`` message is the snapshot, events of all 32 streams follow,
+    ``/api/health`` and ``/api/snapshot`` answer (the ``dashboard`` line).
+    A short third K = 2 run under ``--torch-profile`` counts the kernels in
+    each shard's trace: B1, B2, B3 (``mma``) and both passes of B6 in every
+    shard, B4 in none; its launches a step are over the trace's B2 count,
+    which is one a step on this path;
+16. the ``{"kernels": [...]}`` line, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Every path of phases 4-14 runs with the launch counters set to 0 just
@@ -134,9 +155,15 @@ CUDA card, or a directory without the package.
 
 from __future__ import annotations
 
+import ast
 import asyncio
+import contextlib
 import dataclasses
 import json
+import os
+import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -2269,6 +2296,14 @@ def run_train(params):
 # ---------------------------------------------------------------------------
 
 
+def pipeline_streams(n_streams: int, width: int = 1920, height: int = 1080):
+    """The pipelines' pooled synthetic streams at 25 fps, as config dicts."""
+    return [dict(name=f"cam-{i:02d}",
+                 url=f"synthetic://?width={width}&height={height}&boxes=4&seed={i}&pool=10",
+                 target_fps=25, warmup_seconds=0.0, batch_size=2, adaptive_fps=False)
+            for i in range(n_streams)]
+
+
 def run_pipeline(detector, n_streams: int, seconds: float):
     """``AnalyticsPipeline`` with ``n_streams`` pooled synthetic 1080p
     streams at 25 fps for about ``seconds``; the launch counters are set to
@@ -2285,14 +2320,7 @@ def run_pipeline(detector, n_streams: int, seconds: float):
     from realtime_analytics_tpu_torch.pipeline import AnalyticsPipeline
 
     cfg = PipelineConfig(
-        streams=[
-            StreamConfig(
-                name=f"cam-{i:02d}",
-                url=f"synthetic://?width=1920&height=1080&boxes=4&seed={i}&pool=10",
-                target_fps=25, warmup_seconds=0.0, batch_size=2, adaptive_fps=False,
-            )
-            for i in range(n_streams)
-        ],
+        streams=[StreamConfig(**s) for s in pipeline_streams(n_streams)],
         detector=detector,
         tracker=TrackerConfig(),
         kafka=KafkaSinkConfig(enabled=True, transport="memory"),
@@ -2331,6 +2359,250 @@ def saved_tree(name: str, tree) -> str:
     path = wdir / name
     np.savez(path, __pytree__=np.array(tree, dtype=object))
     return str(path)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the stream-sharding supervisor and the dashboard
+# ---------------------------------------------------------------------------
+
+SHARD_RUNS = ((2, 15.0), (4, 10.0))  # (K, seconds of the bus window)
+TRACED_WINDOW = 4.0  # seconds of the K = 2 run under --torch-profile
+SHARD_TOPIC = "analytics.events"
+# the kernels every shard of the main path must launch, and the one it must not
+SHARD_KERNELS = ("row_gather_kernel", "decode_v8_kernel", "stem_mma_kernel",
+                 "nms_mask_kernel", "nms_chain_kernel")
+SHARD_ABSENT = ("letterbox_kernel",)
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def card_usage():
+    """The contexts on the card and its used memory (MiB), from
+    ``nvidia-smi``. Inside a container it may list every process as pid 1
+    with the memory of them all, so the phase counts the contexts its shards
+    add, not their pids, and reads the memory they add from the card's
+    total."""
+    def query(*args):
+        out = subprocess.run(["nvidia-smi", *args, "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60, check=True)
+        return [line for line in out.stdout.splitlines() if line.strip()]
+
+    contexts = len(query("--query-compute-apps=pid"))
+    return contexts, int(query("--query-gpu=memory.used")[0])
+
+
+def http_json(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as resp:
+        return json.loads(resp.read())
+
+
+async def dashboard_window(bus_port: int, window: float, names):
+    """The port's ``DashboardServer`` on the bus for ``window`` seconds with
+    one WebSocket client on ``/ws``: the first message is the snapshot,
+    events of every stream follow; ``/api/health`` and ``/api/snapshot``
+    answer."""
+    import websockets
+
+    from realtime_analytics_tpu_torch.api.server import DashboardServer
+    from realtime_analytics_tpu_torch.config import KafkaSinkConfig
+
+    server = DashboardServer(
+        KafkaSinkConfig(enabled=True, transport="eventbus",
+                        bootstrap_servers=f"127.0.0.1:{bus_port}", topic=SHARD_TOPIC),
+        host="127.0.0.1", port=0)
+    await server.start()
+    try:
+        t0 = time.perf_counter()
+        streams, events, first_event_s = Counter(), 0, None
+        async with websockets.connect(f"ws://127.0.0.1:{server.port}/ws") as ws:
+            first = json.loads(await asyncio.wait_for(ws.recv(), 10))
+            assert first["type"] == "snapshot", f"first /ws message: {first['type']}"
+            try:
+                async with asyncio.timeout(window):
+                    async for text in ws:
+                        msg = json.loads(text)
+                        assert msg["type"] == "event", msg["type"]
+                        if first_event_s is None:
+                            first_event_s = time.perf_counter() - t0
+                        streams[msg["payload"]["stream"]] += 1
+                        events += 1
+            except TimeoutError:
+                pass
+        base = f"http://127.0.0.1:{server.port}"
+        health = await asyncio.to_thread(http_json, base + "/api/health")
+        snapshot = await asyncio.to_thread(http_json, base + "/api/snapshot")
+    finally:
+        await server.stop()
+    missing = sorted(set(names) - set(streams))
+    assert not missing, f"the dashboard pushed no event of {missing}"
+    snap_streams = {e["stream"] for e in snapshot["events"]}
+    assert health["status"] == "ok" and health["messages_consumed"] >= events > 0, health
+    assert snap_streams == set(names), sorted(set(names) - snap_streams)
+    return dict(ws_events=events, ws_streams=len(streams),
+                ws_min_events_per_stream=min(streams.values()),
+                first_event_s=first_event_s, health=health,
+                snapshot_streams=len(snap_streams))
+
+
+async def bus_window(bus_port: int, window: float, names, dashboard: bool):
+    """Subscribe to the bus for ``window`` seconds and count each stream's
+    events; read ``nvidia-smi`` half way; run the dashboard beside it."""
+    from realtime_analytics_tpu_torch.sinks.eventbus import EventBusSubscriber
+
+    sub = EventBusSubscriber("127.0.0.1", bus_port, SHARD_TOPIC)
+    await sub.connect()
+    dash = (asyncio.create_task(dashboard_window(bus_port, window, names))
+            if dashboard else None)
+
+    async def usage_half_way():
+        await asyncio.sleep(window / 2)
+        return await asyncio.to_thread(card_usage)
+
+    usage = asyncio.create_task(usage_half_way())
+    counts = Counter()
+    t0 = time.perf_counter()
+    try:
+        async with asyncio.timeout(window):
+            async for payload in sub.messages():
+                if payload and "stream" in payload:
+                    counts[payload["stream"]] += 1
+    except TimeoutError:
+        pass
+    finally:
+        await sub.close()
+    seconds = time.perf_counter() - t0
+    return counts, seconds, await usage, (await dash if dash else None)
+
+
+def last_batcher_stats(log_text: str):
+    """The last ``[batcher]`` stats line of a shard's log, as a dict."""
+    lines = [line for line in log_text.splitlines() if "[batcher] " in line]
+    if not lines:
+        return None
+    return ast.literal_eval(lines[-1].split("[batcher] ", 1)[1])["__default__"]
+
+
+def trace_kernels(trace_dir: Path) -> Counter:
+    """Device kernel launches of a shard's Chrome trace, by port kernel."""
+    (path,) = trace_dir.glob("trace-*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    from realtime_analytics_tpu_torch.scripts.profile_step import PORT_KERNELS
+
+    return Counter({k: sum(k in n for n in names) for k in PORT_KERNELS})
+
+
+def drive_shards(k: int, window: float, detector: dict, streams, traced=False,
+                 dashboard=False):
+    """``realtime-analytics-torch --shards K --broker`` as a user runs it:
+    a subprocess of the port's CLI whose K shards share the card and publish
+    to one event bus. Waits until every shard logs "Pipeline started",
+    counts each stream's events on the bus for ``window`` seconds (the
+    dashboard beside it when asked), checks that every shard holds a context
+    on the card and logs its share of the streams, then SIGTERMs the
+    supervisor, which must exit 0. ``traced`` adds ``--torch-profile`` and
+    counts the port's kernels in each shard's trace."""
+    import yaml
+
+    wdir = ROOT / "build" / "chip_smoke" / f"shards_k{k}{'_traced' if traced else ''}"
+    shutil.rmtree(wdir, ignore_errors=True)
+    wdir.mkdir(parents=True)
+    bus_port = free_port()
+    cfg_path = wdir / "pipeline.yaml"
+    cfg_path.write_text(yaml.safe_dump(dict(
+        streams=streams, detector=detector,
+        kafka=dict(enabled=True, transport="eventbus", topic=SHARD_TOPIC,
+                   bootstrap_servers=f"127.0.0.1:{bus_port}", include_frames=False),
+        prometheus=dict(enabled=False), snapshots=dict(enabled=False),
+        batch_window_ms=4, stats_interval_seconds=5)))
+    cmd = [sys.executable, "-m", "realtime_analytics_tpu_torch.scripts.run_pipeline",
+           "--config", str(cfg_path), "--shards", str(k), "--broker",
+           "--duration", "600", "--log-level", "INFO", "--log-file", str(wdir / "shard.log")]
+    if traced:
+        cmd += ["--torch-profile", str(wdir / "trace")]
+    names = [s["name"] for s in streams]
+    contexts_before, used_before = card_usage()
+    out_path = wdir / "supervisor.log"
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    try:
+        while out_path.read_text(errors="replace").count("Pipeline started") < k:
+            assert proc.poll() is None, (
+                f"--shards {k} exited rc={proc.returncode} before its shards started:\n"
+                + out_path.read_text(errors="replace")[-3000:])
+            assert time.perf_counter() - t0 < 300, f"--shards {k}: shards not up in 300 s"
+            time.sleep(0.2)
+        startup_s = time.perf_counter() - t0
+        counts, seconds, (contexts, used), dash = asyncio.run(
+            bus_window(bus_port, window, names, dashboard))
+        t_stop = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=180)
+        stop_s = time.perf_counter() - t_stop
+    finally:  # after a failed check, or a shard the supervisor left behind
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    log_text = out_path.read_text(errors="replace")
+    assert rc == 0, f"--shards {k} exited rc={rc} on SIGTERM:\n{log_text[-3000:]}"
+    missing = sorted(set(names) - set(counts))
+    assert not missing, f"--shards {k}: no event on the bus from {missing}"
+    assert contexts - contexts_before == k, (
+        f"--shards {k}: {contexts - contexts_before} new contexts on the card")
+    shards = []
+    for i in range(k):
+        shard_log = (wdir / f"shard.log.shard{i}").read_text(errors="replace")
+        share = len(names[i::k])
+        assert f"shard {i}/{k}: serving {share} streams" in shard_log, (
+            f"shard {i}/{k} did not log its {share} streams")
+        stats = last_batcher_stats(shard_log) or {}
+        shard = dict(index=i, streams=share, batches=stats.get("batches"),
+                     avg_batch=stats.get("avg_batch_size"),
+                     avg_infer_ms=stats.get("avg_infer_ms"), shed=stats.get("shed"),
+                     warmup_steps=4 * shard_log.count("warmup: bucket"))
+        if traced:
+            launches = trace_kernels(wdir / "trace" / f"shard{i}")
+            for name in SHARD_KERNELS:
+                assert launches[name] > 0, f"shard {i}: {name} not in its trace"
+            for name in SHARD_ABSENT:
+                assert launches[name] == 0, f"shard {i}: {name} in its trace"
+            # B2 runs once a step on this path, so its count is the trace's
+            # steps; the last [batcher] line is up to one stats interval old
+            steps = launches["decode_v8_kernel"]
+            assert steps >= shard["warmup_steps"] + (shard["batches"] or 0), (steps, shard)
+            shard.update(trace_launches=dict(launches), trace_steps=steps,
+                         launches_per_step={n: c / steps for n, c in launches.items() if c})
+        shards.append(shard)
+    events = sum(counts.values())
+    return dict(k=k, dashboard=dash, startup_s=startup_s, window_s=seconds, events=events,
+                frames_per_s_at_sink=events / seconds,
+                min_events_per_stream=min(counts.values()), streams=len(counts),
+                card_contexts_before=contexts_before, card_contexts_during=contexts,
+                card_used_mib_before=used_before, card_used_mib_during=used,
+                card_mib_per_shard=(used - used_before) / k,
+                stop_s=stop_s, rc=rc, shards=shards)
+
+
+def run_shards(detector: dict, streams, in_process: dict):
+    """Phase 15: K = 2 (the dashboard beside it) and K = 4, then a short
+    traced K = 2 run; beside them the in-process pipeline of phase 14."""
+    runs = {f"k{k}": drive_shards(k, window, detector, streams, dashboard=(k == 2))
+            for k, window in SHARD_RUNS}
+    dash = runs["k2"]["dashboard"]
+    for run in runs.values():
+        del run["dashboard"]
+    traced = drive_shards(2, TRACED_WINDOW, detector, streams, traced=True)
+    return dict(runs, traced_k2={"startup_s": traced["startup_s"],
+                                 "shards": traced["shards"]},
+                in_process=in_process), dash
 
 
 def main() -> int:
@@ -2424,9 +2696,10 @@ def main() -> int:
     log("train " + json.dumps(dict(train, card=card)))
     lap("train")
 
-    paths["pipeline"], pipe = run_pipeline(detector_config(
+    pipeline_detector = dict(
         model_path=saved_tree("yolov8n_seeded.npz", params), confidence_threshold=0.25,
-        batch_buckets=None, warmup=True, warmup_source_hw=[1080, 1920]), N, 15.0)
+        batch_buckets=None, warmup=True, warmup_source_hw=[1080, 1920])
+    paths["pipeline"], pipe = run_pipeline(detector_config(**pipeline_detector), N, 15.0)
     log("pipeline " + json.dumps(dict(pipe, card=card)))
     lap("pipeline")
     paths["resnet_pipeline"], rpipe = run_pipeline(resnet_config(
@@ -2435,6 +2708,15 @@ def main() -> int:
     require_launched("ResNet-50 pipeline", paths["resnet_pipeline"], ("letterbox",))
     log("resnet50_pipeline " + json.dumps(dict(rpipe, card=card)))
     lap("resnet_pipeline")
+    # the same detector and streams through the CLI: K shards, one bus
+    torch.cuda.empty_cache()
+    shards, dash = run_shards(
+        dataclasses.asdict(detector_config(**pipeline_detector)), pipeline_streams(N),
+        dict(frames_per_s=pipe["sink_messages"] / 15.0, window_s=15.0,
+             latency_ms_p99=pipe["latency_ms_p99"], shed=pipe["shed"]))
+    log("dashboard " + json.dumps(dict(dash, card=card)))
+    log("shards " + json.dumps(dict(shards, card=card)))
+    lap("shards")
 
     log("launches by path " + json.dumps(paths))
     log("phase wall s " + json.dumps(dict(walls, total_since_start=time.perf_counter() - t0)))
