@@ -42,12 +42,19 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
    seeded He-scaled weights) on 32 synthetic 1080p frames through
    ``predict_arrays`` (host pick -> selected step), held against the same
    engine with the kernels off (bf16 model outputs within the repo's bf16
-   fidelity bound; bf16 detections with B1 + B2 off and fp32 detections
-   with every kernel off, frame by frame); step time, frames/s and peak
+   fidelity bound; bf16 detections with B1 + B2 off, frame by frame, and
+   fp32 detections with every kernel off, frame by frame as sets: each
+   detection paired with the nearest box of its class, as two scores tied
+   to the last bit may swap slots); step time, frames/s and peak
    memory; the host calls that wait for the card, the kernels and the
    select + NMS stage of a step (``profile_step.py``) with NMS's keep pass
    as the fixpoint sweeps, as the overlap build and B6 on the matrix, and
-   as B6 on the boxes;
+   as B6 on the boxes; the neck fused (the default, as the JAX package's)
+   against ``fuse_neck`` off on the same weights: kernels a step equal,
+   bf16 model outputs within the bf16 fidelity bound, bf16 detections
+   reported, fp32 detections held as sets, ``stages_ms.forward`` (median
+   of 7, twice each, interleaved), the forward by CUDA events and replayed
+   as a CUDA graph (the device's time alone);
 5. the YOLO device-resize step: the same engine with ``host_resize: off``
    on 32 synthetic 1280x720 frames (full frames -> B4 letterbox -> forward),
    held against ``pallas_preprocess: off``;
@@ -114,10 +121,22 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
     logits; detections against B1 off; map50); the train CLI's integration recipe
     (400 steps at 64², nc 4) with its map50 above a random init's; the
     eval CLI on the full-width checkpoint (32 synthetic 1080p frames);
-14. the pipelines: ``AnalyticsPipeline`` with 32 pooled ``synthetic://``
+14. the in-process (dp, tp) mesh ("mesh"): ``mesh_shape: [1, 1]`` through
+    the config on the main path (bf16; bit-equal to the meshless engine
+    with B3 off, as B3 is off under a mesh: B1 2, B2 1, B6 1, B3 0); over
+    ``devices=[cuda:0, cuda:0]``, dp 2 and tp 2 on the same step in fp32,
+    dp 2 on the 1280x720 device-resize step (B4' once per shard) and dp 2
+    on ResNet-50 (fp32, B4 stretch once per shard), each held against one
+    device at tests/test_parallel.py's tolerances, with B1 at two launches
+    per dp shard and B2, B6 at one; ``dryrun_multichip`` over 2 and 4
+    entries of the card; three train steps at 640, batch 16, under (2, 2)
+    against (1, 1) on the same seed, losses within 1e-5 relative; step
+    times of every case beside one device's (a sharded step on one card
+    is slower: recorded, not a target);
+15. the pipelines: ``AnalyticsPipeline`` with 32 pooled ``synthetic://``
     1080p streams at 25 fps on YOLOv8n for about 15 s, then 8 such streams
     on ResNet-50 with ``host_resize: off`` for about 5 s;
-15. the stream-sharding supervisor and the dashboard ("shards"): the same
+16. the stream-sharding supervisor and the dashboard ("shards"): the same
     32 streams and YOLOv8n written to a YAML config (an ``eventbus`` sink on
     a free local port, no frames in the events) and served by the port's CLI
     as a user runs it, ``python -m
@@ -138,10 +157,10 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
     each shard's trace: B1, B2, B3 (``mma``) and both passes of B6 in every
     shard, B4 in none; its launches a step are over the trace's B2 count,
     which is one a step on this path;
-16. the ``{"kernels": [...]}`` line, the card line, and last
+17. the ``{"kernels": [...]}`` line, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
-Every path of phases 4-14 runs with the launch counters set to 0 just
+Every path of phases 4-15 runs with the launch counters set to 0 just
 before and read just after; each fails unless the kernels it runs were
 launched (the YOLO v8 steps: ``decode_v8`` exactly once a step; every YOLO
 step: ``nms_keep`` once) and, on the int8, v5, ONNX and artifact paths,
@@ -887,6 +906,23 @@ def hold(name, a, b, score_tol, box_tol):
     return same, score_d, box_d
 
 
+def hold_set(name, a, b, score_tol, box_tol):
+    """Detections of two engines agree as sets on every frame: equal counts
+    and class multisets, each detection paired with the nearest box of its
+    class on the other side (``paired``; NMS orders by score, so two
+    detections whose scores tie to the last fp32 bit may swap slots), scores
+    and boxes within the tolerances; near-tie swaps (scores equal to 1e-6,
+    NMS keeping the other of two tied candidates) are counted."""
+    differ, swaps, score_d, box_d = paired(a, b, box_tol)
+    n = len(a.num_valid)
+    log(f"{name}: {n - len(differ)}/{n} frames with equal counts and classes, each "
+        f"detection paired with its nearest box of the same class: max |score| delta "
+        f"{score_d:.3g} (tol {score_tol}), max |box| delta {box_d:.3g} px (tol {box_tol}), "
+        f"{swaps} near-tie swap(s)")
+    assert not differ and score_d <= score_tol and box_d <= box_tol, f"{name} disagree"
+    return n - len(differ), score_d, box_d
+
+
 def run_engine(params, frames):
     from realtime_analytics_tpu_torch.engine.detector import TorchYoloEngine
     from realtime_analytics_tpu_torch.ops import _cuda
@@ -937,10 +973,11 @@ def run_engine(params, frames):
     # fp32, after NMS, every kernel on vs off: held
     on32 = TorchYoloEngine(detector_config(precision="fp32"), params=params)
     off32 = TorchYoloEngine(detector_config(precision="fp32", **off), params=params)
-    _, score32, box32 = hold("fp32 detections, every kernel on vs off",
+    _, score32, box32 = hold_set("fp32 detections, every kernel on vs off",
                              on32.predict_arrays(frames), off32.predict_arrays(frames),
                              score_tol=1e-4, box_tol=1e-2)
     del ref, stem_only, on32, off32
+    fusion = fused_vs_unfused(eng, params, frames, res, launches)
 
     torch.cuda.reset_peak_memory_stats()
     step_ms, step_min = timed_ms(lambda: eng.predict_arrays(frames), 25)
@@ -950,8 +987,78 @@ def run_engine(params, frames):
                    frames_per_s=N / step_ms * 1e3, max_memory_allocated_mib=mem,
                    bf16_conf_max_delta=conf_d, bf16_box_median_delta_px=box_med,
                    bf16_class_agreement=cls_agree, bf16_all_off_frames_equal=all_off,
-                   fp32_score_max_delta=score32, fp32_box_max_delta_px=box32)
+                   fp32_score_max_delta=score32, fp32_box_max_delta_px=box32,
+                   neck_fusion=fusion)
     return launches, summary, summary_res
+
+
+def fused_vs_unfused(eng, params, frames, res, launches):
+    """The main step with the neck fused (``eng``: the default, as the JAX
+    package's) against an engine on the same weights with ``fuse_neck``
+    off: kernels a step (equal), bf16 model outputs within the bf16
+    fidelity bound, bf16 detections frame by frame (reported, as every
+    kernel on vs off is: near-tied scores of a seeded model reorder), fp32
+    detections held at the fp32 bound of every kernel on vs off, and the
+    forward: ``stages_ms.forward`` (host clock, synchronised; medians of 7,
+    fused, unfused, unfused, fused), CUDA events over 20 calls back to back
+    (host-bound: the host's launches show), and one call replayed as a CUDA
+    graph (the device's time alone), each in the same interleaved order."""
+    from realtime_analytics_tpu_torch.engine.detector import TorchYoloEngine
+    from realtime_analytics_tpu_torch.ops import _cuda
+    from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
+    from realtime_analytics_tpu_torch.scripts.profile_step import stage_times
+
+    unf = TorchYoloEngine(detector_config(), params=params)
+    unf.model.fuse_neck = False
+    assert eng.model.fuse_neck and len(eng.model._neck_fusions()) == 4
+    unf.predict_arrays(frames)
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.reset()
+    res_u = unf.predict_arrays(frames)
+    launches_u = _cuda.LAUNCHES.snapshot()
+    log(f"main path, neck unfused, launches {json.dumps(launches_u)}")
+    assert launches_u == launches, "fusing the neck must not change the kernels a step"
+    got, want = model_outputs(eng, frames), model_outputs(unf, frames)
+    conf_d = (got["conf"] - want["conf"]).abs().max().item()
+    box_med = (got["boxes_xyxy"] - want["boxes_xyxy"]).abs().median().item()
+    cls_agree = (got["cls"] == want["cls"]).float().mean().item()
+    log(f"bf16 model outputs, neck fused vs unfused: max |conf| delta {conf_d:.4g} (< 0.02), "
+        f"median |box| delta {box_med:.4g} px (< 1), class agreement {cls_agree:.4f}")
+    assert conf_d < 0.02 and box_med < 1.0, "the fused neck drifts from the unfused one"
+    frames_equal, _, _ = compare(res, res_u)
+    log(f"bf16 detections, neck fused vs unfused: {frames_equal}/{N} frames with equal "
+        "num_valid and classes (reported, not held, as every kernel on vs off)")
+    f32 = TorchYoloEngine(detector_config(precision="fp32"), params=params)
+    u32 = TorchYoloEngine(detector_config(precision="fp32"), params=params)
+    u32.model.fuse_neck = False
+    _, score32, box32 = hold_set("fp32 detections, neck fused vs unfused",
+                             f32.predict_arrays(frames), u32.predict_arrays(frames),
+                             score_tol=1e-4, box_tol=1e-2)
+    del f32, u32
+    fwd = {"fused": [], "unfused": []}
+    for name, e in (("fused", eng), ("unfused", unf), ("unfused", unf), ("fused", eng)):
+        fwd[name].append(stage_times(e, frames, 7)["forward"])
+    spec = letterbox_spec(frames.shape[1:3], eng.input_hw)
+    sel = torch.from_numpy(eng.host_prepare(frames, frames.shape[1:3])[0]).cuda()
+    dev_ms = {"fused": [], "unfused": []}
+    graph_ms = {"fused": [], "unfused": []}  # replayed: no host cost in it
+    with torch.inference_mode():
+        x = eng._pad_cast(sel, spec)
+        for name, e in (("fused", eng), ("unfused", unf), ("unfused", unf), ("fused", eng)):
+            dev_ms[name].append(cuda_ms(lambda: e._forward_selected(x), iters=20))
+            graph_ms[name].append(graph_us(lambda: e._forward_selected(x), launches=1,
+                                           replays=20) / 1e3)
+    summary = dict(kernels_per_step_fused=launches, kernels_per_step_unfused=launches_u,
+                   bf16_conf_max_delta=conf_d, bf16_box_median_delta_px=box_med,
+                   bf16_class_agreement=cls_agree, bf16_frames_equal=frames_equal,
+                   fp32_score_max_delta=score32, fp32_box_max_delta_px=box32,
+                   forward_ms_fused=fwd["fused"], forward_ms_unfused=fwd["unfused"],
+                   forward_events_ms_fused=dev_ms["fused"],
+                   forward_events_ms_unfused=dev_ms["unfused"],
+                   forward_graph_ms_fused=graph_ms["fused"],
+                   forward_graph_ms_unfused=graph_ms["unfused"])
+    log("neck fusion " + json.dumps(dict(summary, card=CARD)))
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -2181,7 +2288,8 @@ def run_train(params):
 
     # (2) full-width training: 30 steps at batch 16, no kernel launched
     model = build_yolo("yolov8", "n", 80)
-    init_fn, step_fn = make_train_step(model, hw, learning_rate=2e-3, device="cuda")
+    init_fn, step_fn = make_train_step(model, hw, learning_rate=2e-3)  # device: the card
+    assert next(model.parameters()).is_cuda, "make_train_step's default device is the card"
     state = init_fn(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2294,6 +2402,156 @@ def run_train(params):
 # ---------------------------------------------------------------------------
 # phase 14: the pipelines
 # ---------------------------------------------------------------------------
+
+
+def hold_one_device(name, got, want):
+    """A sharded engine's detections against one device's at
+    tests/test_parallel.py's tolerances (boxes rtol 1e-4 atol 1e-2 px,
+    scores rtol 1e-4 atol 1e-5) as sets (``hold_set``): a tp-sliced conv rounds apart from the whole one,
+    and NMS may then order two fp32-tied detections the other way."""
+    assert int(want.num_valid.sum()) > 0
+    # rtol 1e-4 on top of each atol, at the largest value held
+    box_tol = 1e-2 + 1e-4 * float(np.abs(want.boxes_xyxy).max())
+    score_tol = 1e-5 + 1e-4 * float(want.scores.max())
+    _, score_d, box_d = hold_set(f"{name} against one device", got, want, score_tol, box_tol)
+    return dict(box_max_delta_px=box_d, score_max_delta=score_d)
+
+
+def run_mesh(params, frames, frames720, resnet_params, bf16_res,
+             card=torch.device("cuda", 0)):
+    """The in-process (dp, tp) mesh ("mesh"): (1) ``mesh_shape: [1, 1]``
+    through the config on the main path (YOLOv8n, 640, nc 80, bf16, bucket
+    32, 32 x 1080p), bit-equal to the meshless engine with B3 off (B3 is
+    off under a mesh, as in the JAX engine); (2) over ``devices=[cuda:0,
+    cuda:0]``, dp 2 and tp 2 on the same step in fp32 (a tp-sliced conv
+    may round a bf16 output differently), (3) dp 2 on the 1280x720
+    device-resize step, (4) dp 2 on ResNet-50 (fp32), each against one
+    device; (5) ``dryrun_multichip`` over 2 and 4 entries of the card; (6)
+    three train steps at 640, batch 16, under (2, 2) against (1, 1) on the
+    same seed. Launches: B1 two per dp shard, B2 and B6 one per shard, B4
+    one per shard on the full-frame steps, B3 none. Step times beside one
+    device's: on one card the shards run one after another. ``card``: the
+    device the meshes name twice (four times in the (2, 2) one)."""
+    from realtime_analytics_tpu_torch.engine.detector import TorchResNetEngine, TorchYoloEngine
+    from realtime_analytics_tpu_torch.models.yolo import build_yolo
+    from realtime_analytics_tpu_torch.ops import _cuda
+    from realtime_analytics_tpu_torch.parallel.dryrun import dryrun_multichip
+    from realtime_analytics_tpu_torch.parallel.mesh import make_mesh
+    from realtime_analytics_tpu_torch.parallel.train import make_train_step, synthetic_targets
+
+    fields = ("boxes_xyxy", "scores", "class_ids", "num_valid")
+    paths, out = {}, {}
+
+    def counted(name, run, x, want):
+        run(x)  # first call of the shapes: allocator, cuDNN plans
+        torch.cuda.synchronize()
+        _cuda.LAUNCHES.reset()
+        res = run(x)
+        paths[name] = _cuda.LAUNCHES.snapshot()
+        log(f"{name} launches {json.dumps(paths[name])}")
+        require_counts(f"{name} path", paths[name], want)
+        return res
+
+    def ms(run, x):
+        return timed_ms(lambda: run(x), 5)[0]
+
+    # (1) [1, 1] through the config, bf16
+    one = TorchYoloEngine(detector_config(mesh_shape=[1, 1]), params=params)
+    assert one.mesh.shape == {"dp": 1, "tp": 1} and one.model.pallas_stem == "off"
+    assert one.model.fuse_neck, "the main path fuses the neck on the card"
+    res = counted("mesh_1x1", one.predict_arrays, frames,
+                  dict(row_gather=2, decode_v8=1, nms_keep=1, fused_stem=0, letterbox=0))
+    b3_off = TorchYoloEngine(detector_config(pallas_stem="off"), params=params)
+    want = b3_off.predict_arrays(frames)
+    for f in fields:
+        assert np.array_equal(getattr(res, f), getattr(want, f)), f"mesh [1, 1] {f} differs"
+    same_b3_on, _, _ = compare(res, bf16_res)
+    log(f"mesh [1, 1], bf16: bit-equal to the meshless engine with B3 off; {same_b3_on}/{N} "
+        "frames equal to the main path's (B3 on; reported)")
+    out["mesh_1x1_bf16"] = dict(step_ms=ms(one.predict_arrays, frames),
+                                one_device_b3_off_step_ms=ms(b3_off.predict_arrays, frames),
+                                frames_equal_to_main=same_b3_on)
+    del one, b3_off
+
+    # (2) dp 2 and tp 2 on the main step over two entries of the card, fp32
+    ref = TorchYoloEngine(detector_config(precision="fp32", pallas_stem="off"), params=params)
+    want = ref.predict_arrays(frames)
+    one_ms = ms(ref.predict_arrays, frames)
+    for name, shape, counts in (
+            ("mesh_dp2", [2, 1], dict(row_gather=4, decode_v8=2, nms_keep=2, fused_stem=0)),
+            ("mesh_tp2", [1, 2], dict(row_gather=2, decode_v8=1, nms_keep=1, fused_stem=0))):
+        eng = TorchYoloEngine(detector_config(precision="fp32", mesh_shape=shape),
+                              params=params, devices=[card] * 2)
+        res = counted(name, eng.predict_arrays, frames, dict(counts, letterbox=0))
+        out[name] = dict(hold_one_device(f"{name}, fp32 main step", res, want),
+                         step_ms=ms(eng.predict_arrays, frames), one_device_step_ms=one_ms)
+        del eng
+    del ref
+
+    # (3) dp 2 on the device-resize step: B4' once per dp shard
+    kw = dict(precision="fp32", host_resize="off")
+    eng = TorchYoloEngine(detector_config(mesh_shape=[2, 1], **kw), params=params,
+                          devices=[card] * 2)
+    res = counted("mesh_dp2_resize", eng.predict_arrays, frames720,
+                  dict(letterbox=2, row_gather=4, decode_v8=2, nms_keep=2, fused_stem=0))
+    ref = TorchYoloEngine(detector_config(pallas_stem="off", **kw), params=params)
+    out["mesh_dp2_resize"] = dict(
+        hold_one_device("mesh_dp2, fp32 device-resize step", res, ref.predict_arrays(frames720)),
+        step_ms=ms(eng.predict_arrays, frames720),
+        one_device_step_ms=ms(ref.predict_arrays, frames720))
+    del eng, ref
+
+    # (4) dp 2 on ResNet-50, fp32
+    r2 = TorchResNetEngine(resnet_config(precision="fp32", mesh_shape=[2, 1]),
+                           params=resnet_params, devices=[card] * 2)
+    s2, c2 = counted("mesh_resnet_dp2", r2.classify, frames, dict(letterbox=2))
+    r1 = TorchResNetEngine(resnet_config(precision="fp32"), params=resnet_params)
+    s1, c1 = r1.classify(frames)
+    score_d = float(np.abs(s2 - s1).max())
+    log(f"mesh_resnet_dp2 against one device: top-5 classes equal "
+        f"{bool(np.array_equal(c2, c1))}, max |raw score| delta {score_d:.3g}")
+    np.testing.assert_array_equal(c2, c1)
+    np.testing.assert_allclose(s2, s1, rtol=1e-4, atol=1e-4)
+    out["mesh_resnet_dp2"] = dict(score_max_delta=score_d, step_ms=ms(r2.classify, frames),
+                                  one_device_step_ms=ms(r1.classify, frames))
+    del r1, r2
+
+    # (5) the dry run over 2 and 4 entries of the card
+    for n in (2, 4):
+        t0 = time.perf_counter()
+        out[f"dryrun_{n}"] = dict(dryrun_multichip(n, [card] * n),
+                                  seconds=time.perf_counter() - t0)
+        log(f"dryrun_multichip({n}) {json.dumps(out[f'dryrun_{n}'])}")
+
+    # (6) three train steps at 640, batch 16: (2, 2) against (1, 1)
+    rng = np.random.default_rng(0)
+    images = rng.uniform(0, 1, (16, HW, HW, 3)).astype(np.float32)
+    targets = synthetic_targets(rng, 16, 4, (HW, HW), 80)
+    train = {}
+    for name, shape in (("1x1", (1, 1)), ("2x2", (2, 2))):
+        n = shape[0] * shape[1]
+        model = build_yolo("yolov8", "n", 80)
+        init_fn, step_fn = make_train_step(
+            model, (HW, HW), mesh=make_mesh(n, shape=shape, devices=[card] * n))
+        state = init_fn(0)
+        torch.cuda.synchronize()
+        _cuda.LAUNCHES.reset()
+        losses, times = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, images, targets)
+            losses.append(float(loss))
+            times.append((time.perf_counter() - t0) * 1e3)
+        paths[f"mesh_train_{name}"] = _cuda.LAUNCHES.snapshot()
+        train[name] = dict(losses=losses, step_ms=times)
+        del model, state
+    rel = max(abs(a - b) / abs(b) for a, b in zip(train["2x2"]["losses"],
+                                                   train["1x1"]["losses"]))
+    log(f"train at 640, batch 16, (2, 2) against (1, 1): losses {train['2x2']['losses']} vs "
+        f"{train['1x1']['losses']}, max rel {rel:.3g} (<= 1e-5)")
+    assert rel <= 1e-5, "the sharded train step's loss is not one device's"
+    out["train"] = dict(train, loss_max_rel=rel)
+    return paths, out
 
 
 def pipeline_streams(n_streams: int, width: int = 1920, height: int = 1080):
@@ -2695,6 +2953,11 @@ def main() -> int:
     paths.update(train_paths)
     log("train " + json.dumps(dict(train, card=card)))
     lap("train")
+    torch.cuda.empty_cache()
+    mesh_paths, mesh = run_mesh(params, frames, frames720, resnet_params, bf16_res)
+    paths.update(mesh_paths)
+    log("mesh " + json.dumps(dict(mesh, card=card)))
+    lap("mesh")
 
     pipeline_detector = dict(
         model_path=saved_tree("yolov8n_seeded.npz", params), confidence_threshold=0.25,

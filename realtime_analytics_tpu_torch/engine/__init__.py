@@ -1,8 +1,7 @@
 """The PyTorch inference engine.
 
   * ``detector`` — the YOLO detection and ResNet classification engines
-    and the ``create_detector`` factory (reference-compatible routing;
-    routes not ported yet raise NotImplementedError naming ROADMAP.md)
+    and the ``create_detector`` factory (reference-compatible routing)
   * ``temporal`` — the clip engine of the four temporal families
   * ``batcher``  — the cross-stream dynamic batcher (asyncio)
 """

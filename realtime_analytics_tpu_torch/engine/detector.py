@@ -21,6 +21,21 @@ resolution through the same selected step, merged on the host).
 A ``.rvae`` serving artifact (``engine/export.py``) is served by the
 exported engine of its family, from the file alone.
 
+The neck is fused on the card (``fuse_neck_on``), as the JAX package's
+forward fuses it: the block after each upsample + concat takes the two
+inputs through split 1x1 convs (``models/yolo.py``).
+
+Multi-device: ``detector.mesh_shape: [dp, tp]`` serves every engine family
+over an in-process (dp, tp) mesh (``parallel/mesh.py``), as the JAX engines
+shard their params over a mesh: ``_init_mesh`` builds the mesh (the cards
+``cuda:0..n-1``; dp x tp entries of the CPU for ``device: cpu``; or the
+``devices=`` an engine is given, which may name one card k times) and the
+model over it (``ShardedModel``: conv channels over tp, the batch over dp);
+buckets round up to a multiple of dp (``_round_mesh``); the kernels B1, B4
+and B6 run once per dp shard, B2 on each shard's joined head, and B3 is off
+(its stem weights are tp-sharded), as the JAX engine turns its stem kernel
+off under a mesh. Graph-backed models take dp-only meshes.
+
 A ``.onnx`` file that matches no known checkpoint layout but holds a full
 graph is served as that graph (``models/onnx_graph_model.py``), as the
 reference's ONNX Runtime backend serves any export, in fp32 unless
@@ -69,7 +84,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import DetectorConfig, TEMPORAL_MODEL_TYPES
+from ..config import ConfigError, DetectorConfig, TEMPORAL_MODEL_TYPES
 from ..models.onnx_graph_model import graph_dtype, load_graph_fallback
 from ..models.resnet import build_resnet, normalize_imagenet, variant_from_model_path
 from ..models.weights import (
@@ -100,17 +115,18 @@ from ..ops.preprocess import (
     preprocess_batch,
 )
 from ..ops.tiling import crop_tile, merge_frame, tile_grid
+from ..parallel.mesh import ShardedModel, make_mesh
 from ..types import BatchResult, Detection, FramePacket
 
 logger = logging.getLogger(__name__)
-
-_NOT_PORTED = " is not ported to the PyTorch package yet — see ROADMAP.md"
 
 
 class BaseDetector(abc.ABC):
     """Single-packet predict interface (reference detector.py:43-51)."""
 
     config: DetectorConfig
+    mesh = None  # set by _init_mesh when detector.mesh_shape is configured
+    sharded = None  # the model over the mesh (parallel/mesh.ShardedModel)
 
     @abc.abstractmethod
     def predict(self, packet: FramePacket) -> List[Detection]:
@@ -118,6 +134,59 @@ class BaseDetector(abc.ABC):
 
     def close(self) -> None:  # pragma: no cover - optional override
         pass
+
+    # -- multi-device helpers (every engine family shares these) -------------
+
+    @property
+    def net(self):
+        """The model a device step calls: over the mesh when one is
+        configured."""
+        return self.model if self.sharded is None else self.sharded
+
+    def _init_mesh(self, devices: Optional[Sequence] = None) -> None:
+        """``detector.mesh_shape = [dp, tp]`` -> the mesh and the model over
+        it (the JAX engines' ``_init_mesh``): over ``devices`` when given,
+        dp x tp entries of the CPU for ``device: cpu``, else the cards
+        ``cuda:0..n-1`` (raising when fewer are visible). Graph-backed
+        models (foreign ONNX graphs) allow dp-only meshes (tp == 1): the
+        batch shards over dp with replicated weights, since channel-sharding
+        a foreign graph's weights is a layout its author never validated."""
+        cfg = self.config
+        self.mesh = self.sharded = None
+        if not cfg.mesh_shape:
+            return
+        shape = tuple(int(v) for v in cfg.mesh_shape)
+        graph = getattr(self, "_graph_backed", False) or getattr(self.model, "graph_backed",
+                                                                False)
+        if graph and len(shape) > 1 and shape[1] != 1:
+            raise ConfigError(
+                "generic ONNX graph models support dp-only meshes — "
+                f"use mesh_shape: [{int(np.prod(shape))}, 1] (batch "
+                "sharding), or shard streams across chips with "
+                "`--shards`"
+            )
+        n = int(np.prod(shape))
+        if devices is None and self.device.type == "cpu":
+            devices = [self.device] * n
+        self.mesh = make_mesh(n, shape=shape, devices=devices)
+        if self.mesh.devices[0, 0] != self.device:
+            raise ConfigError(f"the mesh's first device {self.mesh.devices[0, 0]} is not the "
+                              f"engine's device {self.device}")
+        self.sharded = ShardedModel(self.model, self.mesh)
+
+    def _round_mesh(self, bucket: int) -> int:
+        """In mesh mode the batch shards over dp, so buckets round up to a
+        dp multiple."""
+        if self.mesh is not None:
+            dp = self.mesh.shape["dp"]
+            bucket = ((bucket + dp - 1) // dp) * dp
+        return bucket
+
+    def _mesh_call(self, step, arr: np.ndarray, *args):
+        """Run a device step on batch-leading host input ``arr``: uploaded
+        to the engine's device (the mesh's first), where the step's sharded
+        parts (``net``, the kernels' dp forms) split it over dp."""
+        return step(torch.from_numpy(np.ascontiguousarray(arr)).to(self.device), *args)
 
 
 def pick_device(config: DetectorConfig) -> torch.device:
@@ -244,11 +313,12 @@ class PreparedState:
 class TorchYoloEngine(PreparedState, BaseDetector):
     """YOLOv5/v8 engine with batched inference on one card (or the CPU)."""
 
-    def __init__(self, config: DetectorConfig, params: Optional[Dict] = None):
+    def __init__(self, config: DetectorConfig, params: Optional[Dict] = None,
+                 devices: Optional[Sequence] = None):
+        """``devices``: the mesh's devices under ``mesh_shape`` (see
+        ``_init_mesh``)."""
         config.validate()
         self.config = config
-        if config.mesh_shape:
-            raise NotImplementedError("detector.mesh_shape (multi-device)" + _NOT_PORTED)
         self.device = pick_device(config)
         fp32_means_fp32(self.device)
         model_type = config.model_type if config.model_type in ("yolov5", "yolov8") \
@@ -283,6 +353,9 @@ class TorchYoloEngine(PreparedState, BaseDetector):
                     params_from_jax(self.model, params)
                 self.model.to(device=self.device, dtype=self.compute_dtype,
                               memory_format=torch.channels_last).eval()
+                self.model.fuse_neck = fuse_neck_on(self.device)
+                if self.model.fuse_neck:
+                    self.model.prepare_neck()
         if config.s2d_backbone != "off":
             logger.info(
                 "detector.s2d_backbone=%s is a TPU layout tactic of the JAX "
@@ -294,6 +367,15 @@ class TorchYoloEngine(PreparedState, BaseDetector):
         if not self._graph_backed:
             self.model.pallas_decode = "off" if config.pallas_decode == "off" else "on"
             self.model.pallas_stem = "off" if config.pallas_stem == "off" else "on"
+            if config.mesh_shape:
+                # auto resolves to off under a mesh; an explicit request warns
+                if config.pallas_stem in ("on", "interpret"):
+                    logger.warning(
+                        "pallas_stem: %s ignored under mesh serving — the fused stem "
+                        "kernel has no sharded form (its stem weights are tp-sharded; "
+                        "B1, B4 and B6 run per dp shard); serving stays on the "
+                        "layer-by-layer stem", config.pallas_stem)
+                self.model.pallas_stem = "off"
             self._w0_folded = self._fold_stem()
             if self.model.stem_nodes_ok():
                 self._stem_folded = self.model.stem_weights(self.compute_dtype,
@@ -308,6 +390,9 @@ class TorchYoloEngine(PreparedState, BaseDetector):
         self.class_agnostic_nms = True  # reference NMS is class-agnostic
         self.last_infer_ms: float = 0.0
         self._operands = {}
+        # multi-device: detector.mesh_shape = [dp, tp] shards the convs'
+        # channels over tp and every batch over dp (graph-backed: dp only)
+        self._init_mesh(devices)
 
     def _init_graph(self, graph) -> None:
         """A foreign ONNX graph as the model (the JAX engine's graph
@@ -483,6 +568,7 @@ class TorchYoloEngine(PreparedState, BaseDetector):
             pre_topk=min(cfg.pre_nms_topk, boxes.shape[1]),
             class_agnostic=self.class_agnostic_nms,
             gather_impl=self._nms_gather,
+            mesh=self.mesh,
         )
 
     def _pad_cast(self, sel_u8: torch.Tensor, spec) -> torch.Tensor:
@@ -499,8 +585,8 @@ class TorchYoloEngine(PreparedState, BaseDetector):
     def _forward_selected(self, x: torch.Tensor):
         """The model on a ``_pad_cast`` input: the stem-folded weights take
         raw BGR pixels."""
-        return self.model(x, reduce_scores=True, w0=self._w0_folded,
-                          stem_weights=self._stem_folded)
+        return self.net(x, reduce_scores=True, w0=self._w0_folded,
+                        stem_weights=self._stem_folded)
 
     def _step_selected(self, sel_u8: torch.Tensor, spec):
         """Over host-picked input: pad + cast, forward with the stem-folded
@@ -519,7 +605,7 @@ class TorchYoloEngine(PreparedState, BaseDetector):
         needs_resize = (spec.new_h, spec.new_w) != (spec.src_h, spec.src_w)
         if mode == "on" or (mode == "auto" and needs_resize and frames_u8.is_cuda):
             return letterbox(frames_u8, spec, self.compute_dtype,
-                             self.operands_for((spec.src_h, spec.src_w)))
+                             self.operands_for((spec.src_h, spec.src_w)), self.mesh)
         return preprocess_batch(frames_u8, spec=spec, out_dtype=self.compute_dtype,
                                 layout="NHWC")
 
@@ -527,7 +613,7 @@ class TorchYoloEngine(PreparedState, BaseDetector):
         """Over full frames [B, H, W, 3] uint8 BGR: device letterbox (B4 or
         plain), forward with the plain stem weights, NMS, un-letterbox."""
         x = self._device_letterbox(frames_u8, spec)
-        out = self.model(x, reduce_scores=True, stem_weights=self._stem_plain)
+        out = self.net(x, reduce_scores=True, stem_weights=self._stem_plain)
         return self._finish(out, spec)
 
     def _finish(self, out, spec):
@@ -540,33 +626,37 @@ class TorchYoloEngine(PreparedState, BaseDetector):
 
     def _effective_bucket(self, n: int, src_hw: Tuple[int, int]) -> int:
         """The cheapest warmed bucket that fits n frames, for THIS source
-        resolution (costs are per resolution), else the smallest."""
-        return _cheapest_bucket(
+        resolution (costs are per resolution), else the smallest; rounded
+        up to a multiple of dp under a mesh."""
+        return self._round_mesh(_cheapest_bucket(
             self.config.resolved_buckets, n,
             self._bucket_cost_ms.get(tuple(src_hw), {}),
-        )
+        ))
 
     def warmup(self, src_hw: Tuple[int, int], buckets: Optional[Sequence[int]] = None):
         """Run every bucket once to settle allocations, cuDNN algorithm
         choice and the first-use kernel build, then time it (min of 3) for
-        cost-aware bucket selection."""
+        cost-aware bucket selection. Under a mesh each bucket runs rounded
+        to dp, the step ``predict_arrays`` then runs; its cost is recorded
+        under the bucket before rounding, the key selection compares."""
         buckets = buckets or self.config.resolved_buckets
         _, selected = self.host_prepare(np.zeros((1, *src_hw, 3), np.uint8), src_hw)
         costs = self._bucket_cost_ms.setdefault(tuple(src_hw), {})
         for b in buckets:
             b0 = _bucket_for(self.config.resolved_buckets, b)
+            rb = self._round_mesh(b0)
             prepared, _ = self.host_prepare(
-                np.zeros((b0, *src_hw, 3), dtype=np.uint8), src_hw
+                np.zeros((rb, *src_hw, 3), dtype=np.uint8), src_hw
             )
-            self._run_bucket(b0, prepared, src_hw, selected)
+            self._run_bucket(rb, prepared, src_hw, selected)
             cost = float("inf")
             for _ in range(3):
-                self._run_bucket(b0, prepared, src_hw, selected)
+                self._run_bucket(rb, prepared, src_hw, selected)
                 cost = min(cost, self.last_infer_ms)
             costs[b0] = cost
             logger.info(
                 "warmup: bucket B=%d src=%s (host_select=%s) step=%.1fms",
-                b0, src_hw, selected, cost,
+                rb, src_hw, selected, cost,
             )
         if self._tiling_active(src_hw) and tuple(src_hw) != tuple(self.input_hw):
             # tiled serving runs the input-sized step on the tile crops
@@ -599,9 +689,8 @@ class TorchYoloEngine(PreparedState, BaseDetector):
         spec = letterbox_spec(src_hw, self.input_hw)
         t0 = time.perf_counter()
         with torch.inference_mode():
-            x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
             step = self._step_selected if selected else self._step_device_resize
-            b, s, c, nv = (t.cpu().numpy() for t in step(x, spec))
+            b, s, c, nv = (t.cpu().numpy() for t in self._mesh_call(step, frames, spec))
         self.last_infer_ms = (time.perf_counter() - t0) * 1e3
         return BatchResult(
             boxes_xyxy=b[:n], scores=s[:n], class_ids=c[:n], num_valid=nv[:n],
@@ -724,6 +813,16 @@ def to_graph_device(graph, device: torch.device) -> None:
     graph.eval()
 
 
+def fuse_neck_on(device: torch.device) -> bool:
+    """Whether an engine on ``device`` fuses its YOLO model's neck: on the
+    card, as the JAX package's forward does (the upsampled tensor and the
+    concat never reach device memory). The CPU runs the neck layer by
+    layer: the same function up to fp32 rounding, on which the port's CPU
+    tests of detection order were made (they hold scores tied to the last
+    bit, which a change of rounding may reorder)."""
+    return device.type == "cuda"
+
+
 def fp32_means_fp32(device: torch.device) -> None:
     """On the card, turn TF32 off: cuDNN convolutions default to it."""
     if device.type == "cuda":
@@ -738,14 +837,15 @@ def bgr_unit_rgb(frames_u8: torch.Tensor) -> torch.Tensor:
 
 def stretch_unit_rgb(frames_u8: torch.Tensor, dst_hw: Tuple[int, int],
                      kernel: bool,
-                     operands: Optional[LetterboxOperands] = None) -> torch.Tensor:
+                     operands: Optional[LetterboxOperands] = None,
+                     mesh=None) -> torch.Tensor:
     """Full frames [B, H, W, 3] uint8 BGR -> fp32 RGB in [0, 1] at
     ``dst_hw``, as the JAX ResNet and temporal device steps: kernel B4's
-    stretch (rounded to uint8 levels) when ``kernel``, else bilinear
-    ``F.interpolate`` with no rounding, then the flip and /255.
-    ``operands``: B4's tables, in a traced step."""
+    stretch (rounded to uint8 levels) when ``kernel``, once per dp shard
+    under ``mesh``, else bilinear ``F.interpolate`` with no rounding, then
+    the flip and /255. ``operands``: B4's tables, in a traced step."""
     if kernel:
-        return stretch_resize(frames_u8, dst_hw, torch.float32, operands)
+        return stretch_resize(frames_u8, dst_hw, torch.float32, operands, mesh)
     x = frames_u8.to(torch.float32).permute(0, 3, 1, 2)
     x = F.interpolate(x, size=tuple(dst_hw), mode="bilinear", align_corners=False)
     return x.permute(0, 2, 3, 1).flip(-1) * (1.0 / 255.0)
@@ -777,12 +877,10 @@ class TorchResNetEngine(PreparedState, BaseDetector):
     B4 on the card unless ``pallas_preprocess: off``, else the JAX
     package's unrounded bilinear resize."""
 
-    def __init__(self, config: DetectorConfig, params: Optional[Dict] = None):
+    def __init__(self, config: DetectorConfig, params: Optional[Dict] = None,
+                 devices: Optional[Sequence] = None):
         config.validate()
         self.config = config
-        if config.mesh_shape:
-            raise NotImplementedError(
-                "detector.mesh_shape (multi-device) for the ResNet classifier" + _NOT_PORTED)
         self.device = pick_device(config)
         fp32_means_fp32(self.device)
         self.model = build_resnet(variant_from_model_path(config.model_path),
@@ -812,6 +910,9 @@ class TorchResNetEngine(PreparedState, BaseDetector):
         self._bucket_cost_ms: Dict[Tuple[int, int], Dict[int, float]] = {}
         self.last_infer_ms = 0.0
         self._operands = {}
+        # multi-device: [dp, tp] shards conv channels over tp, batches over
+        # dp (classifier graphs: dp only)
+        self._init_mesh(devices)
 
     def _operands_spec(self, src_hw):
         return stretch_spec(src_hw, self.input_hw), torch.float32
@@ -836,7 +937,7 @@ class TorchResNetEngine(PreparedState, BaseDetector):
         """x: [B, th, tw, 3] fp32 RGB in [0, 1] -> (top-k scores, classes);
         raw head outputs unless ``resnet_scores: softmax``."""
         x = normalize_imagenet(x).to(self.compute_dtype)
-        logits = self.model(x).to(torch.float32)
+        logits = self.net(x).to(torch.float32)
         k = min(self.config.resnet_top_k, logits.shape[-1])
         scores = torch.softmax(logits, dim=-1) if self.config.resnet_scores == "softmax" else logits
         return torch.topk(scores, k, dim=-1)
@@ -847,7 +948,8 @@ class TorchResNetEngine(PreparedState, BaseDetector):
         else:
             kernel = self.config.pallas_preprocess != "off" and self.device.type == "cuda"
             x = stretch_unit_rgb(frames_u8, self.input_hw, kernel,
-                                 self.operands_for(frames_u8.shape[1:3]) if kernel else None)
+                                 self.operands_for(frames_u8.shape[1:3]) if kernel else None,
+                                 self.mesh)
         return self._classify_head(x)
 
     def _run_bucket(self, bucket: int, frames: np.ndarray, resized: bool):
@@ -858,8 +960,7 @@ class TorchResNetEngine(PreparedState, BaseDetector):
                 [frames, np.zeros((bucket - n, *frames.shape[1:]), frames.dtype)])
         t0 = time.perf_counter()
         with torch.inference_mode():
-            x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
-            scores, classes = self._step(x, resized)
+            scores, classes = self._mesh_call(self._step, frames, resized)
             scores, classes = scores.cpu().numpy(), classes.cpu().numpy()
         self.last_infer_ms = (time.perf_counter() - t0) * 1e3
         return scores[:n], classes[:n]
@@ -871,15 +972,16 @@ class TorchResNetEngine(PreparedState, BaseDetector):
         probe, resized = self.host_prepare(np.zeros((1, *src_hw, 3), np.uint8), src_hw)
         costs = self._bucket_cost_ms.setdefault(tuple(src_hw), {})
         for b in buckets:
-            frames = np.zeros((b, *probe.shape[1:]), np.uint8)
-            self._run_bucket(b, frames, resized)
+            rb = self._round_mesh(b)
+            frames = np.zeros((rb, *probe.shape[1:]), np.uint8)
+            self._run_bucket(rb, frames, resized)
             cost = float("inf")
             for _ in range(3):
-                self._run_bucket(b, frames, resized)
+                self._run_bucket(rb, frames, resized)
                 cost = min(cost, self.last_infer_ms)
             costs[b] = cost
             logger.info("resnet warmup: bucket B=%d src=%s (host_resize=%s) step=%.1fms",
-                        b, src_hw, resized, cost)
+                        rb, src_hw, resized, cost)
 
     def classify(self, frames) -> Tuple[np.ndarray, np.ndarray]:
         """frames: same-resolution uint8 BGR frames (an array or a list) ->
@@ -889,8 +991,9 @@ class TorchResNetEngine(PreparedState, BaseDetector):
         if not resized:
             prepared = np.stack(prepared) if isinstance(prepared, list) else prepared
         # more frames than the largest bucket run unpadded, as in JAX
-        bucket = _cheapest_bucket(self.config.resolved_buckets, len(prepared),
-                                  self._bucket_cost_ms.get(src_hw, {}))
+        bucket = self._round_mesh(_cheapest_bucket(self.config.resolved_buckets,
+                                                   len(prepared),
+                                                   self._bucket_cost_ms.get(src_hw, {})))
         return self._run_bucket(bucket, prepared, resized)
 
     def predict_packets(self, packets: Sequence[FramePacket]) -> List[List[Detection]]:

@@ -312,7 +312,10 @@ def export_serving_artifact(
     card."""
     kind = _engine_kind(engine)
     if getattr(engine, "mesh", None) is not None:
-        raise ValueError("export_serving_artifact supports single-device engines")
+        raise ValueError(
+            "export_serving_artifact supports single-device engines; a mesh engine "
+            "runs its steps over the mesh's devices, which a program traced for one "
+            "device does not hold: serve the checkpoint with mesh_shape")
     if not str(path).endswith(ARTIFACT_SUFFIX):
         raise ValueError(f"artifact path must end with {ARTIFACT_SUFFIX}")
     # dedupe after normalization (order-preserving): repeated sources must
@@ -422,7 +425,8 @@ class _ArtifactMixin:
         if config.mesh_shape:
             raise ConfigError(
                 "mesh_shape cannot be served from a .rvae artifact: its programs are "
-                "traced for one device at export time")
+                "traced for one device at export time. For mesh serving point "
+                "model_path at the checkpoint")
         self.device = pick_device(config)
         # TF32 off for fp32: process state that an exported program does not carry
         fp32_means_fp32(self.device)

@@ -21,6 +21,11 @@ the JAX package's unrounded bilinear resize.
 
 A ``.onnx`` clip model that matches no known layout is served as its own
 graph (``models/onnx_graph_model.py``) in the same clip step.
+
+``detector.mesh_shape: [dp, tp]`` serves the clip step over an in-process
+mesh, as the JAX engine does (``BaseDetector._init_mesh``): clip buckets
+round up to a multiple of dp, the clips split over dp (B4 once per dp
+shard of their frames), conv and dense channels over tp (graphs: dp only).
 """
 
 from __future__ import annotations
@@ -45,7 +50,6 @@ from ..models.weights import (
 from ..ops.letterbox import stretch_spec
 from ..types import Detection, FramePacket, TemporalDetection
 from .detector import (
-    _NOT_PORTED,
     BaseDetector,
     PreparedState,
     _cheapest_bucket,
@@ -66,13 +70,12 @@ TOP_K = 5  # reference emits top-5 actions per clip
 class TorchTemporalEngine(PreparedState, BaseDetector):
     """CNN-LSTM / 3D-CNN / ConvGRU / SlowFast engine."""
 
-    def __init__(self, config: DetectorConfig, params: Optional[Dict] = None):
+    def __init__(self, config: DetectorConfig, params: Optional[Dict] = None,
+                 devices: Optional[Sequence] = None):
+        """``devices``: the mesh's devices under ``mesh_shape`` (see
+        ``BaseDetector._init_mesh``)."""
         config.validate()
         self.config = config
-        if config.mesh_shape:
-            raise NotImplementedError(
-                f"detector.mesh_shape (multi-device) for the temporal model "
-                f"{config.model_type!r}" + _NOT_PORTED)
         self.device = pick_device(config)
         fp32_means_fp32(self.device)
         self.model = build_temporal(
@@ -114,6 +117,9 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
         self._warned_no_cv2 = False
         self.last_infer_ms = 0.0
         self._operands = {}
+        # multi-device: [dp, tp] shards channels over tp, clip batches over
+        # dp (temporal graphs: dp only)
+        self._init_mesh(devices)
 
     # -- prepared state (engine/export.py) -------------------------------------
 
@@ -172,7 +178,7 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
         th, tw = self.input_hw
         x = ((x - self._mean) / self._std).to(self.compute_dtype)
         x = x.reshape(b, self.config.sequence_length, th, tw, 3)
-        logits = self.model(x).to(torch.float32)
+        logits = self.net(x).to(torch.float32)
         probs = torch.softmax(logits, dim=-1)
         return torch.topk(probs, min(TOP_K, probs.shape[-1]), dim=-1)
 
@@ -186,7 +192,8 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
         else:
             kernel = self.config.pallas_preprocess != "off" and self.device.type == "cuda"
             x = stretch_unit_rgb(flat, self.input_hw, kernel,
-                                 self.operands_for(flat.shape[1:3]) if kernel else None)
+                                 self.operands_for(flat.shape[1:3]) if kernel else None,
+                                 self.mesh)
         return self._clip_head(x, b)
 
     def _run_bucket(self, bucket: int, clips: np.ndarray, resized: bool):
@@ -197,8 +204,7 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
             clips = np.concatenate([clips, np.repeat(clips[-1:], bucket - n, axis=0)])
         t0 = time.perf_counter()
         with torch.inference_mode():
-            x = torch.from_numpy(np.ascontiguousarray(clips)).to(self.device)
-            scores, classes = self._step(x, resized)
+            scores, classes = self._mesh_call(self._step, clips, resized)
             scores, classes = scores.cpu().numpy(), classes.cpu().numpy()
         self.last_infer_ms = (time.perf_counter() - t0) * 1e3
         return scores[:n], classes[:n]
@@ -213,15 +219,16 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
         hw = (th, tw) if resized else tuple(src_hw)
         costs = self._bucket_cost_ms.setdefault(tuple(src_hw), {})
         for b in buckets:
-            clips = np.zeros((b, t_len, *hw, 3), np.uint8)
-            self._run_bucket(b, clips, resized)
+            rb = self._round_mesh(b)
+            clips = np.zeros((rb, t_len, *hw, 3), np.uint8)
+            self._run_bucket(rb, clips, resized)
             cost = float("inf")
             for _ in range(3):
-                self._run_bucket(b, clips, resized)
+                self._run_bucket(rb, clips, resized)
                 cost = min(cost, self.last_infer_ms)
             costs[b] = cost
             logger.info("temporal warmup: bucket B=%d src=%s (host_resize=%s) step=%.1fms",
-                        b, src_hw, resized, cost)
+                        rb, src_hw, resized, cost)
 
     # -- sliding-window predict ----------------------------------------------
 
@@ -300,8 +307,8 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
             if not resized:
                 clips = np.stack([np.stack([p.frame for p in sequences[i]]) for i in idxs])
             # more clips than the largest bucket run unpadded, as in JAX
-            bucket = _cheapest_bucket(buckets, clips.shape[0],
-                                      self._bucket_cost_ms.get(shape, {}))
+            bucket = self._round_mesh(_cheapest_bucket(buckets, clips.shape[0],
+                                                       self._bucket_cost_ms.get(shape, {})))
             scores, classes = self._run_bucket(bucket, clips, resized)
             for j, i in enumerate(idxs):
                 results[i] = self._to_detections(sequences[i], scores[j], classes[j])

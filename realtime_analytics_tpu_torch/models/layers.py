@@ -16,6 +16,12 @@ holds int8 weights instead of float ones and runs the full int8 conv
 dequantised in fp32), the JAX package's ``conv_act(act_int8=True)``.
 ``ConvAct.plain_weight`` dequantises the weights in bf16 (the JAX
 package's ``get_weight``) for the v5 head, which stays weight-only.
+
+Neck fusion: ``ConvAct.up_concat`` is the JAX package's
+``_split_up_conv1x1_act``, a 1x1 conv over ``concat(up2x(x), y)`` computed
+from the two input-channel halves of its weight, so that neither the
+upsample of ``x`` nor the concat is written; ``split_input`` keeps the two
+halves as contiguous buffers, made once when a serving model is prepared.
 """
 
 from __future__ import annotations
@@ -83,6 +89,9 @@ class ConvAct(nn.Module):
         self.register_buffer("w_scale", None)
         self.register_buffer("a_scale", None)
         self.register_buffer("w_pack", None, persistent=False)
+        # the fused neck's weight halves (``split_input``): not parameters
+        self.register_buffer("w_up", None, persistent=False)
+        self.register_buffer("w_skip", None, persistent=False)
         self.shape = (cout, cin, k, k)
         self.stride, self.padding, self.act = s, p, act
 
@@ -111,7 +120,34 @@ class ConvAct(nn.Module):
                    stride=self.stride, padding=self.padding)
         return silu(y) if self.act else y
 
+    def split_input(self, ch: int) -> None:
+        """Keep the weight's input channels ``[:ch]`` and ``[ch:]`` as two
+        contiguous buffers for ``up_concat`` (a serving model's, made once;
+        a new load drops them)."""
+        w = self.weight.detach()
+        self.w_up = w[:, :ch].contiguous(memory_format=torch.channels_last)
+        self.w_skip = w[:, ch:].contiguous(memory_format=torch.channels_last)
+
+    def up_concat(self, x_small: torch.Tensor, y_skip: torch.Tensor) -> torch.Tensor:
+        """This 1x1 conv + SiLU over ``concat(up2x(x_small), y_skip)``
+        without the upsample or the concat in memory (the nearest upsample
+        commutes with a 1x1 conv): ``a = conv(x_small, w[:, :ch])``, ``b =
+        conv(y_skip, w[:, ch:]) + bias``, ``silu(up2x(a) + b)``, each
+        rounded to the input's dtype in that order, as the JAX package's
+        ``_split_up_conv1x1_act``. A weight that takes gradients is split by
+        views (autograd runs through them); a serving one uses the halves
+        of ``split_input`` when it has them."""
+        ch = x_small.shape[1]
+        if self.w_up is not None and not self.weight.requires_grad:
+            w_a, w_b = self.w_up, self.w_skip
+        else:
+            w_a, w_b = self.weight[:, :ch], self.weight[:, ch:]
+        a = conv2d(x_small, w_a.to(x_small.dtype))
+        b = conv2d(y_skip, w_b.to(y_skip.dtype)) + self.bias.to(y_skip.dtype)[:, None, None]
+        return silu(upsample2x(a) + b)
+
     def load_tree(self, node: Mapping, path: str) -> None:
+        self.w_up = self.w_skip = None
         if "w_q" not in node:
             if self.w_q is not None:
                 raise ValueError(f"{path}: the module holds int8 weights; load float "

@@ -23,9 +23,17 @@ Decode semantics (the JAX package's):
 Kernels on this path: the fused stem B3 (nodes 0 + 1, ``pallas_stem``) and
 the v8 head decode B2 (``pallas_decode``). ``"off"`` runs the plain
 layer-by-layer path. B3 needs the v8 k3-s2 stem and float weights: it is
-off for v5 (a k6 stem) and for int8 weights, as in the JAX package. The
-reference's neck fusion (an XLA HBM optimisation) is not ported: plain
-upsample + concat here.
+off for v5 (a k6 stem) and for int8 weights, as in the JAX package.
+
+Neck fusion (``fuse_neck``, on by default as in the JAX package): at each
+upsample -> two-input concat -> C2f/C3 junction whose upsample and concat
+feed only the next node (``_neck_fusions``: 4 entries on v8 and on v5),
+the upsample and the concat pass their inputs lazily to the block, whose
+leading 1x1 conv(s) take them through ``ConvAct.up_concat``: the 2x
+upsampled tensor and the concat are never written. Off for int8 weights
+(their activation scales were calibrated on the unsplit input).
+``prepare_neck`` keeps the split weight halves of a serving model; these
+are plain cuDNN convs, which the JAX package computes in XLA.
 
 int8: every ``ConvAct`` that holds int8 weights runs the full int8 conv
 (``ops/int8.py``), as the JAX package's ``act_int8``; the v5 head conv
@@ -119,8 +127,10 @@ class C2f(nn.Module):
         self.m = nn.ModuleList(Bottleneck(c, c) for _ in range(n))
         self.shortcut = shortcut
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.cv1(x)
+    def forward(self, x) -> torch.Tensor:
+        """``x``: a tensor, or the fused neck's ("lazy_up_concat", x_small,
+        y_skip)."""
+        y = self.cv1.up_concat(x[1], x[2]) if isinstance(x, tuple) else self.cv1(x)
         a, b = y.chunk(2, dim=1)
         ys = [a, b]
         cur = b
@@ -143,9 +153,13 @@ class C3(nn.Module):
         self.m = nn.ModuleList(Bottleneck(c, c, 1, 3) for _ in range(n))
         self.shortcut = shortcut
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a = self.cv1(x)
-        b = self.cv2(x)
+    def forward(self, x) -> torch.Tensor:
+        """``x``: a tensor, or the fused neck's ("lazy_up_concat", x_small,
+        y_skip), which both branches take."""
+        if isinstance(x, tuple):
+            a, b = self.cv1.up_concat(x[1], x[2]), self.cv2.up_concat(x[1], x[2])
+        else:
+            a, b = self.cv1(x), self.cv2(x)
         for blk in self.m:
             a = blk(a, self.shortcut)
         return self.cv3(torch.cat([a, b], dim=1))
@@ -291,7 +305,8 @@ class YoloModel(nn.Module):
     """YOLOv5 / YOLOv8 graph + decode. ``pallas_stem`` / ``pallas_decode``
     are "off" (plain path) or "on" (the kernel wrappers: the CUDA kernel on
     a card, the plain version on the CPU); the engine sets them from
-    config."""
+    config. ``fuse_neck`` is a model attribute, as in the JAX package (no
+    config key)."""
 
     def __init__(self, version: int, size: str, nc: int, nodes: List[Node],
                  channels: List[int], head_srcs: List[int]):
@@ -302,6 +317,8 @@ class YoloModel(nn.Module):
         self.head_idx = len(nodes) - 1
         self.pallas_stem = "off"
         self.pallas_decode = "off"
+        self.fuse_neck = True
+        self._fusions: Optional[Dict[int, str]] = None
         self.layers = nn.ModuleDict()
         for i, node in enumerate(nodes):
             mod = self._make_node(i, node)
@@ -333,7 +350,7 @@ class YoloModel(nn.Module):
         """The convs hold int8 weights (``weights.quantize_params_int8``),
         so they run the int8 conv: the JAX package's ``act_int8`` on a
         quantised tree."""
-        return self.layers["0"].w_q is not None
+        return getattr(self.layers["0"], "w_q", None) is not None  # (a TpSplit: float)
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
@@ -361,6 +378,48 @@ class YoloModel(nn.Module):
         for lvl in range(len(head.cv2)):
             head.cv2[lvl][2].bias.fill_(1.0)
             head.cv3[lvl][2].bias.fill_(math.log(0.01 / 0.99))
+
+    def _neck_fusions(self) -> Dict[int, str]:
+        """Indices of fusable upsample -> concat(up, skip) -> c2f/c3
+        triples (the JAX package's rule): the upsample and the concat must
+        each have exactly one consumer, the next node, so deferring them
+        cannot change any other path."""
+        if self._fusions is None:
+            consumers: Dict[int, List[int]] = {}
+            for j, nd in enumerate(self.nodes):
+                for s in nd.src:
+                    consumers.setdefault(s if s >= 0 else j - 1, []).append(j)
+            fus: Dict[int, str] = {}
+            for i, nd in enumerate(self.nodes):
+                if nd.kind != "upsample" or i + 2 >= len(self.nodes):
+                    continue
+                cat, blk = self.nodes[i + 1], self.nodes[i + 2]
+                if cat.kind != "concat" or len(cat.src) != 2:
+                    continue
+                if (cat.src[0] if cat.src[0] >= 0 else i) != i:
+                    continue
+                if blk.kind not in ("c2f", "c3"):
+                    continue
+                if [s if s >= 0 else i + 1 for s in blk.src] != [i + 1]:
+                    continue
+                if consumers.get(i) != [i + 1] or consumers.get(i + 1) != [i + 2]:
+                    continue
+                fus[i] = "up"
+                fus[i + 1] = "cat"
+            self._fusions = fus
+        return self._fusions
+
+    def prepare_neck(self) -> None:
+        """Keep the split 1x1 weight halves of every fused junction's block
+        (``ConvAct.split_input`` at the upsampled tensor's width), once, on
+        the weights as they now are: a serving model's preparation."""
+        if self.act_int8:
+            return
+        for i, kind in self._neck_fusions().items():
+            if kind == "up":
+                blk = self.layers[str(i + 2)]
+                for conv in ((blk.cv1, blk.cv2) if isinstance(blk, C3) else (blk.cv1,)):
+                    conv.split_input(self.channels[i])
 
     def stem_ok(self, h: int, w: int, dtype: torch.dtype = torch.float32) -> bool:
         """The fused stem applies: the stem nodes fit with float weights
@@ -403,7 +462,8 @@ class YoloModel(nn.Module):
         {"scores": [N, A, nc]} or, with ``reduce_scores``, {"conf": [N, A],
         "cls": [N, A] int32}. ``stem_weights``: the fused stem's prepared
         weights (else prepared here from the module and ``w0``)."""
-        outs: List[Optional[torch.Tensor]] = [None] * len(self.nodes)
+        outs: List = [None] * len(self.nodes)
+        fus = self._neck_fusions() if self.fuse_neck and not self.act_int8 else {}
         xc = x.permute(0, 3, 1, 2)  # NCHW view in channels_last memory
         prev = xc
         start = 0
@@ -425,9 +485,11 @@ class YoloModel(nn.Module):
             elif node.kind in ("c2f", "c3", "sppf"):
                 y = mod(ins[0])
             elif node.kind == "upsample":
-                y = upsample2x(ins[0])
+                # a fused junction defers the upsample into the block's 1x1
+                y = ("lazy_up", ins[0]) if i in fus else upsample2x(ins[0])
             elif node.kind == "concat":
-                y = torch.cat(ins, dim=1)
+                y = (("lazy_up_concat", ins[0][1], ins[1]) if i in fus
+                     else torch.cat(ins, dim=1))
             elif node.kind == "detect_v8":
                 return mod(ins, reduce_scores, self.pallas_decode)
             elif node.kind == "detect_v5":

@@ -13,7 +13,7 @@ lock-free launch count (``ops/_cuda.py``).
 
 ``batched_nms`` makes two calls per step: the top-K boxes ([N, 8400, 4] ->
 [N, 512, 4] at 640 input) and the compaction payload ([N, 512, 6] ->
-[N, 300, 6]).
+[N, 300, 6]); under a mesh each call launches once per dp shard (B1').
 
 The registered op ``rva::row_gather`` (``ops/_cuda.py``) reaches the same C
 entry on a CUDA tensor and the plain version on a CPU one; ``row_gather``
@@ -35,10 +35,17 @@ def row_gather_plain(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return payload[rows, idx]
 
 
-def row_gather(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def row_gather(payload: torch.Tensor, idx: torch.Tensor, mesh=None) -> torch.Tensor:
     """payload: [N, M, P] float32; idx: [N, K] int64 with 0 <= idx < M (the
     caller's contract — not checked on the card, where it would cost a
-    sync). Returns [N, K, P] float32, bit-identical to the payload rows."""
+    sync). Returns [N, K, P] float32, bit-identical to the payload rows.
+    ``mesh``: a device mesh (``parallel/mesh.py``) whose dp axis splits the
+    batch; the gather then runs once per dp shard on that shard's rows
+    (JAX's ``shard_map``'d form), with the same result."""
+    if mesh is not None and mesh.shape["dp"] > 1:
+        from ..parallel.mesh import dp_map
+
+        return dp_map(row_gather, mesh, payload, idx)
     if _cuda.routed_through_ops():
         return torch.ops.rva.row_gather(payload, idx)
     if not payload.is_cuda or idx.get_device() != payload.get_device():

@@ -231,12 +231,19 @@ def letterbox_operands(spec: LetterboxSpec, out_dtype: torch.dtype,
 
 def letterbox(frames_u8: torch.Tensor, spec: LetterboxSpec,
               out_dtype: torch.dtype = torch.bfloat16,
-              operands: Optional[LetterboxOperands] = None) -> torch.Tensor:
+              operands: Optional[LetterboxOperands] = None,
+              mesh=None) -> torch.Tensor:
     """frames_u8: [N, src_h, src_w, 3] uint8 BGR, contiguous. Returns the
     letterboxed RGB canvas [N, dst_h, dst_w, 3] in ``out_dtype`` (bf16 or
     fp32), NHWC-contiguous. ``operands``: this geometry's
     ``letterbox_operands``, which a traced step must pass (its tables are
-    then the step's inputs); a direct call builds and keeps its own."""
+    then the step's inputs); a direct call builds and keeps its own.
+    ``mesh``: a device mesh whose dp axis splits the batch; the kernel then
+    runs once per dp shard (B4', JAX's ``shard_map``'d ``pallas_letterbox``)."""
+    if mesh is not None and mesh.shape["dp"] > 1:
+        from ..parallel.mesh import dp_map
+
+        return dp_map(lambda f: letterbox(f, spec, out_dtype, operands), mesh, frames_u8)
     if _cuda.routed_through_ops():
         if operands is None:
             raise ValueError("letterbox: a traced step takes the geometry's tables as "
@@ -323,8 +330,10 @@ def stretch_resize_plain(frames_u8: torch.Tensor, dst_hw: Tuple[int, int],
 
 def stretch_resize(frames_u8: torch.Tensor, dst_hw: Tuple[int, int],
                    out_dtype: torch.dtype = torch.bfloat16,
-                   operands: Optional[LetterboxOperands] = None) -> torch.Tensor:
+                   operands: Optional[LetterboxOperands] = None,
+                   mesh=None) -> torch.Tensor:
     """Non-aspect-preserving resize to ``dst_hw`` (the ResNet and temporal
-    preprocess): the letterbox kernel with a zero-pad spec."""
+    preprocess): the letterbox kernel with a zero-pad spec; once per dp
+    shard under ``mesh`` (JAX's ``pallas_stretch_resize`` under a mesh)."""
     spec = stretch_spec(tuple(frames_u8.shape[1:3]), dst_hw)
-    return letterbox(frames_u8, spec, out_dtype, operands)
+    return letterbox(frames_u8, spec, out_dtype, operands, mesh)

@@ -167,13 +167,18 @@ def nms_keep_boxes_plain(boxes: torch.Tensor, valid: torch.Tensor,
 
 
 def nms_keep_boxes(boxes: torch.Tensor, valid: torch.Tensor,
-                   iou_threshold: float) -> torch.Tensor:
+                   iou_threshold: float, mesh=None) -> torch.Tensor:
     """Greedy suppression from the boxes: boxes [N, K, 4] f32 xyxy in rank
     order (class-shifted where NMS is class-aware), valid [N, K] bool.
     Returns keep [N, K] bool, bit-equal to ``nms_keep_boxes_plain``: on
     CUDA tensors kernel B6 (two launches, one count), on CPU ones the plain
     version. ``iou_threshold`` is compared in float32, as PyTorch compares
-    an f32 tensor with a Python number."""
+    an f32 tensor with a Python number. ``mesh``: a device mesh whose dp
+    axis splits the batch; the keep pass then runs once per dp shard."""
+    if mesh is not None and mesh.shape["dp"] > 1:
+        from ..parallel.mesh import dp_map
+
+        return dp_map(lambda b, v: nms_keep_boxes(b, v, iou_threshold), mesh, boxes, valid)
     if _cuda.routed_through_ops():
         return torch.ops.rva.nms_keep_boxes(boxes, valid, float(iou_threshold))
     if boxes.device.type == "cpu" and valid.device.type == "cpu":
@@ -226,6 +231,7 @@ def batched_nms(
     pre_topk: int = 1024,
     class_agnostic: bool = True,
     gather_impl: str = "kernel",
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched NMS with static output shapes.
 
@@ -237,6 +243,10 @@ def batched_nms(
       gather_impl: "kernel" — payload gathers through B1 (the CUDA kernel on
                  the card, its plain version on the CPU) — or "torch"
                  (``torch.gather``). Results are bit-identical.
+      mesh:      device mesh for sharded serving (``parallel/mesh.py``): the
+                 B1 gathers and B6 then run once per dp shard on that
+                 shard's rows (JAX's ``shard_map``'d gathers), the rest on
+                 the whole batch; the result is the same.
 
     Returns:
       (boxes [N, max_det, 4] f32, scores [N, max_det] f32,
@@ -246,6 +256,8 @@ def batched_nms(
     if gather_impl not in ("kernel", "torch"):
         raise ValueError(f"gather_impl must be 'kernel' or 'torch', got {gather_impl!r}")
     gather = row_gather if gather_impl == "kernel" else _torch_gather
+    if mesh is not None and gather_impl == "kernel":
+        gather = lambda p, i: row_gather(p, i, mesh)  # noqa: E731
     n, m = scores.shape
     k = min(pre_topk, m)
     dev = scores.device
@@ -267,7 +279,8 @@ def batched_nms(
         nms_boxes = (top_boxes - lo) + (
             top_classes.to(top_boxes.dtype) * offset
         )[..., None]
-    keep = nms_keep_boxes(nms_boxes, valid, iou_threshold)
+    keep = (nms_keep_boxes(nms_boxes, valid, iou_threshold) if mesh is None
+            else nms_keep_boxes(nms_boxes, valid, iou_threshold, mesh=mesh))
 
     # 3. stable compaction, kept rows first in score order
     d = min(max_det, k)

@@ -1,9 +1,15 @@
-"""Detection training step on one device.
+"""Detection training step, on one device or over a (dp, tp) mesh.
 
 Counterpart of ``realtime_analytics_tpu/parallel/train.py``: forward, the
 same anchor-free detection loss, backward and an AdamW update (optax's
-``adamw`` defaults), here on one card (or the CPU) instead of jit'd over a
-(dp, tp) mesh (multi-device training waits for ROADMAP.md Queue A item 7).
+``adamw`` defaults), on one card (or the CPU), or over an in-process
+(dp, tp) mesh (``parallel/mesh.py``): the batch splits over dp, conv
+output channels over tp, and the parameters and their AdamW moments are
+sharded by the same rule (``_leaf_spec``). The loss is the global batch's,
+as one device computes it: every row's outputs are joined on the mesh's
+first device before the loss, and each row's gradients reach the sharded
+parameters through autograd (the all-reduce). After each step the model's
+own tensors take the joined parameters, so that it can be saved or served.
 
 The loss, as the JAX package's:
 
@@ -18,6 +24,14 @@ Gradients follow JAX's: every clamp of the loss is ``torch.maximum`` /
 two as JAX's ``maximum`` does (``clamp`` passes it whole). The model runs
 its plain path (``pallas_stem`` and ``pallas_decode`` "off"): the kernels
 B2 and B3 have no backward, and JAX's training does not run them either.
+The step runs the layer-by-layer neck (``fuse_neck`` off), where JAX's
+``detection_loss`` applies its default, fused forward. The two are one
+function up to rounding, and their gradients agree (the fused step, with
+autograd through views of the split weights, is held against JAX's in
+tests/test_torch_neck_fusion.py), but the train CLI's 400-step recipe is
+chaotic in its rounding: from the same init it ends at loss 3.42
+unfused and 19.97 fused on the CPU (4 threads), and fused on the card its
+map50 is 0, no better than a random init's.
 On the card the step's convolutions are true fp32 (cuDNN's TF32 off for
 the step's duration) and its kernels deterministic: the recipe of the
 train CLI is chaotic in its rounding (a last-bit difference early on
@@ -35,6 +49,7 @@ import torch
 
 from ..models.weights import params_to_tree
 from ..models.yolo import STRIDES, YoloModel
+from .mesh import Mesh, ShardedModel
 
 _EPS = 1e-7
 
@@ -75,7 +90,7 @@ def iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def detection_loss(
-    model: YoloModel,
+    model,
     images: torch.Tensor,  # [N, H, W, 3] normalized RGB
     targets: Dict[str, torch.Tensor],  # boxes [N,M,4] xyxy px, classes [N,M], mask [N,M]
     anchors: torch.Tensor,  # [A, 2]
@@ -125,18 +140,21 @@ def detection_loss(
 
 
 class TrainState(NamedTuple):
-    """The model's parameters (by name; the tensors the model holds), the
-    optimizer that owns their moments, and the number of steps taken."""
+    """The parameters the optimizer updates, by name (the model's own, or
+    under a mesh the sharded ones), the optimizer that owns their moments,
+    the number of steps taken, and under a mesh the model over it."""
 
     params: Dict[str, torch.nn.Parameter]
     opt_state: torch.optim.AdamW
     step: int
+    net: Optional[ShardedModel] = None
 
 
-def make_optimizer(model: YoloModel, learning_rate: float) -> torch.optim.AdamW:
+def make_optimizer(model, learning_rate: float) -> torch.optim.AdamW:
     """``optax.adamw(learning_rate)``: decay 1e-4 on every parameter,
     biases included. ``foreach`` on the card; one update per tensor on the
-    CPU (one rounding path for the tests)."""
+    CPU (one rounding path for the tests). ``model``: a module, or a
+    ``ShardedModel`` (its sharded parameters)."""
     on_card = next(model.parameters()).device.type == "cuda"
     return torch.optim.AdamW(
         model.parameters(), lr=learning_rate, betas=BETAS, eps=ADAM_EPS,
@@ -148,15 +166,19 @@ def make_train_step(
     model: YoloModel,
     input_hw: Tuple[int, int],
     learning_rate: float = 1e-3,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device, None] = None,
+    mesh: Optional[Mesh] = None,
 ):
-    """Build (init_fn, step_fn) on ``device``; the model moves there and
-    its parameters take gradients. The step runs under ``step_numerics``.
+    """Build (init_fn, step_fn) on ``device`` (None: the card, raising
+    when none is visible; "cpu" is the CPU) or over ``mesh`` (on its
+    devices; the model moves to its first); the model's parameters take
+    gradients. The step runs under ``step_numerics``.
 
     init_fn(seed) -> state: the model's seeded init (``init_params``) and a
-    fresh optimizer. step_fn(state, images, targets) -> (state, loss):
-    images NHWC float32 RGB in [0, 1], targets numpy or tensors; the loss
-    is a zero-dim tensor on the device (no wait for the card).
+    fresh optimizer (over the sharded parameters under a mesh).
+    step_fn(state, images, targets) -> (state, loss): images NHWC float32
+    RGB in [0, 1], targets numpy or tensors; the loss is a zero-dim tensor
+    on the device (no wait for the card).
     """
     if getattr(model, "version", 8) != 8:
         # anchor_centers() lays anchors out in the v8 order (one per cell,
@@ -166,26 +188,41 @@ def make_train_step(
             "make_train_step supports yolov8 models; got version "
             f"{getattr(model, 'version', '?')}"
         )
+    if mesh is not None:
+        lead = mesh.devices[0, 0]
+        if device is not None and torch.device(device) != lead:
+            raise ValueError(f"device {device} is not the mesh's first device {lead}")
+        device = lead
+    elif device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_train_step: device=None means the card and none is "
+                               "visible; pass device='cpu' to train on the CPU")
+        device = torch.device("cuda", torch.cuda.current_device())
     device = torch.device(device)
     model.pallas_stem = model.pallas_decode = "off"  # B2 and B3 have no backward
+    model.fuse_neck = False  # the layer-by-layer neck (see the module docstring)
     model.to(device=device, dtype=torch.float32, memory_format=torch.channels_last)
     model.requires_grad_(True)
     anchors = torch.from_numpy(anchor_centers(input_hw)).to(device)
 
     def init_fn(seed: int = 0) -> TrainState:
         model.init_params(torch.Generator().manual_seed(seed))
-        return TrainState(params=dict(model.named_parameters()),
-                          opt_state=make_optimizer(model, learning_rate), step=0)
+        net = None if mesh is None else ShardedModel(model, mesh)
+        return TrainState(params=dict((net or model).named_parameters()),
+                          opt_state=make_optimizer(net or model, learning_rate), step=0,
+                          net=net)
 
     def step_fn(state: TrainState, images, targets) -> Tuple[TrainState, torch.Tensor]:
         x = torch.as_tensor(images, dtype=torch.float32).to(device)
         tg = {k: torch.as_tensor(v).to(device) for k, v in targets.items()}
         with step_numerics():
-            loss = detection_loss(model, x, tg, anchors)
+            loss = detection_loss(state.net or model, x, tg, anchors)
             state.opt_state.zero_grad(set_to_none=True)
             loss.backward()
             state.opt_state.step()
-        return TrainState(state.params, state.opt_state, state.step + 1), loss.detach()
+            if state.net is not None:
+                state.net.gather_into_module()
+        return state._replace(step=state.step + 1), loss.detach()
 
     return init_fn, step_fn
 
@@ -257,37 +294,50 @@ def named_tree(model: YoloModel, values: Mapping[str, Optional[torch.Tensor]]) -
     return tree
 
 
-def opt_state_tree(model: YoloModel, opt: torch.optim.AdamW) -> Dict:
+def opt_state_tree(model: YoloModel, opt: torch.optim.AdamW,
+                   net: Optional[ShardedModel] = None) -> Dict:
     """The optimizer's state as ``{"count": int, "mu": tree, "nu": tree}``
     (optax's ``ScaleByAdamState`` fields), the trees in the params' JAX
-    layout. Before the first step the moments are zeros."""
-    states = {name: opt.state.get(p, {}) for name, p in model.named_parameters()}
+    layout. Before the first step the moments are zeros. ``net``: the
+    model over a mesh whose sharded parameters ``opt`` updates (their
+    moments are joined)."""
+    states = {name: opt.state.get(p, {}) for name, p in (net or model).named_parameters()}
     count = max((int(st["step"]) for st in states.values() if "step" in st), default=0)
-    return {"count": count,
-            "mu": named_tree(model, {n: st.get("exp_avg") for n, st in states.items()}),
-            "nu": named_tree(model, {n: st.get("exp_avg_sq") for n, st in states.items()})}
+    moments = {}
+    for key, field in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        values = {n: st.get(field) for n, st in states.items()}
+        moments[key] = named_tree(model, net.joined(values) if net is not None else values)
+    return {"count": count, **moments}
 
 
-def load_opt_state_tree(model: YoloModel, opt: torch.optim.AdamW, state: Dict) -> None:
+def load_opt_state_tree(model: YoloModel, opt: torch.optim.AdamW, state: Dict,
+                        net: Optional[ShardedModel] = None) -> None:
     """Inverse of ``opt_state_tree``: the moments and the count into
-    ``opt``; ValueError if ``state`` is not that layout."""
+    ``opt`` (into the sharded parameters' slots under a mesh: ``net``);
+    ValueError if ``state`` is not that layout."""
     if not isinstance(state, dict) or set(state) != {"count", "mu", "nu"}:
         raise ValueError("opt_state must be {'count', 'mu', 'nu'}, got "
                          f"{type(state).__name__}")
     count = int(state["count"])
+    moments = {"mu": {}, "nu": {}}
     for name, p in model.named_parameters():
-        moments = []
         for key in ("mu", "nu"):
             try:
                 node, leaf = _node(state[key], name)
                 value = node[leaf]
             except (KeyError, IndexError, TypeError) as exc:
                 raise ValueError(f"opt_state[{key!r}] has no {name}") from exc
-            moments.append(_from_tree_layout(value, p, name))
+            moments[key][name] = _from_tree_layout(value, p, name)
+    if net is not None:
+        moments = {key: net.split(values) for key, values in moments.items()}
+    for name, p in (net or model).named_parameters():
+        mu, nu = (moments[key][name].to(p.device).contiguous(
+            memory_format=torch.channels_last if p.dim() == 4 else torch.contiguous_format)
+            for key in ("mu", "nu"))
         opt.state[p] = {
             # a CPU step counter, as AdamW keeps it when not capturable
             "step": torch.tensor(float(count), dtype=torch.float32),
-            "exp_avg": moments[0], "exp_avg_sq": moments[1],
+            "exp_avg": mu, "exp_avg_sq": nu,
         }
 
 

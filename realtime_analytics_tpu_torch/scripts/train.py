@@ -5,8 +5,9 @@ flags and defaults: the train step of ``parallel/train.py`` (forward,
 anchor-free detection loss, backward, AdamW) on one card, or on the CPU
 with ``--device cpu``. ``--device auto`` (the default) is the card and
 raises when none is visible. The step's kernels are deterministic (one
-trajectory a seed). ``--mesh`` is accepted absent or ``1,1``; multi-device
-training waits for ROADMAP.md Queue A item 7.
+trajectory a seed). ``--mesh DP,TP`` trains over a (dp, tp) mesh
+(``parallel/mesh.py``): the cards ``cuda:0..DP*TP-1``, or DP*TP entries of
+the CPU with ``--device cpu``.
 
 Built-in data: the synthetic video source renders moving rectangles AND
 knows their ground-truth boxes (``SyntheticSource.read_labeled``), so the
@@ -133,8 +134,7 @@ def main(argv=None) -> int:
     p.add_argument("--lr", type=float, default=2e-3)
     p.add_argument("--boxes-per-image", type=int, default=3)
     p.add_argument("--mesh", default=None, metavar="DP,TP",
-                   help="only 1,1 (one device); a larger mesh waits for "
-                        "ROADMAP.md Queue A item 7")
+                   help="e.g. 4,2 — the train step over a (dp, tp) device mesh")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--init-from", default=None,
                    help="checkpoint to fine-tune from (.pt/.npz/.onnx)")
@@ -157,21 +157,19 @@ def main(argv=None) -> int:
     from ..ingest.synthetic import SyntheticSource
     from ..models.weights import load_yolo_checkpoint, params_from_jax, params_to_tree
     from ..models.yolo import build_yolo
-    from ..parallel.train import (
-        TrainState,
-        load_opt_state_tree,
-        make_train_step,
-        opt_state_tree,
-    )
+    from ..parallel.mesh import make_mesh
+    from ..parallel.train import load_opt_state_tree, make_train_step, opt_state_tree
 
-    if args.mesh and tuple(v.strip() for v in args.mesh.split(",")) != ("1", "1"):
-        raise ValueError(f"--mesh {args.mesh}: the port trains on one device; "
-                         "multi-device training is ROADMAP.md Queue A item 7")
     input_hw = tuple(args.input_size)
     device = pick_device(DetectorConfig(device=args.device))
     model = build_yolo(args.model_type, args.size, nc=args.nc)
+    mesh = None
+    if args.mesh:
+        dp, tp = (int(v) for v in args.mesh.split(","))
+        mesh = make_mesh(dp * tp, shape=(dp, tp),
+                         devices=[device] * (dp * tp) if device.type == "cpu" else None)
     init_fn, step_fn = make_train_step(model, input_hw, learning_rate=args.lr,
-                                       device=device)
+                                       device=device, mesh=mesh)
 
     sources = [
         SyntheticSource(width=input_hw[1] * 2, height=input_hw[0] * 2,
@@ -200,7 +198,7 @@ def main(argv=None) -> int:
         """Atomic full-state checkpoint: params + optimizer state + step,
         plain dicts of numpy arrays in the params' layout."""
         host = {"params": params_to_tree(model),
-                "opt_state": opt_state_tree(model, state.opt_state),
+                "opt_state": opt_state_tree(model, state.opt_state, state.net),
                 "step": int(state.step)}
         tmp = ckpt_path + ".tmp.npz"
         np.savez(tmp, __pytree__=np.array(host, dtype=object))
@@ -213,14 +211,16 @@ def main(argv=None) -> int:
             try:
                 tree = read_train_state(ckpt_path)
                 params_from_jax(model, tree["params"])
-                load_opt_state_tree(model, state.opt_state, tree["opt_state"])
+                if state.net is not None:
+                    state.net.scatter_from_module()
+                load_opt_state_tree(model, state.opt_state, tree["opt_state"], state.net)
             except (ValueError, KeyError) as exc:
                 print(f"--resume: {ckpt_path} is not this trainer's resume layout "
                       f"({exc}); the JAX trainer's optax state does not load here",
                       file=sys.stderr)
                 return 1
             resumed = True
-            state = TrainState(state.params, state.opt_state, int(tree["step"]))
+            state = state._replace(step=int(tree["step"]))
             print(f"resumed from {ckpt_path} at step {state.step}")
         else:
             print(f"--resume: no checkpoint at {ckpt_path}, starting fresh")
@@ -234,6 +234,8 @@ def main(argv=None) -> int:
             print(f"could not load --init-from {args.init_from}", file=sys.stderr)
             return 1
         params_from_jax(model, loaded)
+        if state.net is not None:
+            state.net.scatter_from_module()
 
     if args.eval:
         iou0 = mean_best_iou(as_engine(), sources, input_hw)

@@ -165,16 +165,29 @@ def test_device_rules():
                                                device=dev, warmup=False))
 
 
-@pytest.mark.parametrize("over,match", [
-    (dict(model_type="resnet", mesh_shape=[2, 1]), "ResNet"),
-    (dict(model_type="cnn_lstm", mesh_shape=[2, 1]), "temporal"),
-    (dict(mesh_shape=[2, 1]), "mesh_shape"),
-])
-def test_unported_routes_raise(over, match):
-    cfg = DetectorConfig(**{**dict(device="cpu", warmup=False,
-                                   model_path="__random__.pt"), **over})
-    with pytest.raises(NotImplementedError, match=match):
-        create_detector(cfg)
+@pytest.mark.parametrize("over", [
+    dict(model_type="resnet", model_path="resnet18-seeded.pt", input_size=[64, 64]),
+    dict(model_type="cnn_lstm", input_size=[64, 64], sequence_length=2),
+    dict(input_size=[64, 64]),
+], ids=["resnet", "temporal", "yolo"])
+def test_mesh_routes_serve(over):
+    """``detector.mesh_shape`` builds each engine family over a CPU mesh
+    (dp x tp entries of the CPU) and serves a batch rounded up to dp; the
+    engines against one device are in tests/test_torch_parallel.py."""
+    from realtime_analytics_tpu_torch.config import StreamConfig
+    from realtime_analytics_tpu_torch.types import FramePacket
+
+    cfg = DetectorConfig(**{**dict(device="cpu", warmup=False, model_path="__random__.pt",
+                                   max_batch_size=4, batch_buckets=[1, 4],
+                                   mesh_shape=[2, 2]), **over})
+    eng = create_detector(cfg)
+    assert eng.mesh is not None and eng.mesh.shape == {"dp": 2, "tp": 2}
+    assert eng._round_mesh(1) == 2
+    frame = np.random.default_rng(0).integers(0, 256, (96, 128, 3), dtype=np.uint8)
+    packets = [FramePacket(stream=StreamConfig(name="cam", url="synthetic://"), frame=frame,
+                           frame_id=i, timestamp=0.0) for i in range(4)]
+    out = eng.predict_packets(packets)
+    assert len(out) == 4
 
 
 def test_s2d_knob_is_a_logged_noop(caplog, weights_npz):

@@ -44,6 +44,8 @@ assert {"realtime_analytics_tpu_torch.ops.int8",
         "realtime_analytics_tpu_torch.scripts.quantize_model",
         "realtime_analytics_tpu_torch.scripts.export_temporal_model",
         "realtime_analytics_tpu_torch.parallel.train",
+        "realtime_analytics_tpu_torch.parallel.mesh",
+        "realtime_analytics_tpu_torch.parallel.dryrun",
         "realtime_analytics_tpu_torch.eval.detection_metrics",
         "realtime_analytics_tpu_torch.utils.profiling",
         "realtime_analytics_tpu_torch.scripts.train",

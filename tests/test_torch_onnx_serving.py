@@ -292,10 +292,21 @@ def test_bf16_keeps_quant_scales_fp32_and_int8_warns(tmp_path, caplog):
     assert np.isfinite(res.scores).all()
 
 
-def test_mesh_shape_still_raises(foreign_onnx):
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
-        create_detector(DetectorConfig(device="cpu", mesh_shape=[2, 1],
+def test_graph_mesh_is_dp_only(foreign_onnx):
+    """A foreign graph takes a dp-only mesh, as in the JAX engine: tp > 1
+    raises its ConfigError; ``mesh_shape: [2, 1]`` splits the batch with
+    replicated weights and serves the detections of one device."""
+    from realtime_analytics_tpu_torch.config import ConfigError
+
+    with pytest.raises(ConfigError, match="dp-only meshes"):
+        create_detector(DetectorConfig(device="cpu", mesh_shape=[2, 2],
                                        **_det_kw(foreign_onnx["dynamic"])))
+    sharded = create_detector(DetectorConfig(device="cpu", mesh_shape=[2, 1],
+                                             **_det_kw(foreign_onnx["dynamic"])))
+    one = create_detector(DetectorConfig(device="cpu", **_det_kw(foreign_onnx["dynamic"])))
+    assert sharded.mesh.shape == {"dp": 2, "tp": 1} and sharded.sharded.net is sharded.model
+    frames = np.random.default_rng(8).integers(0, 256, (3, *HW, 3), dtype=np.uint8)
+    _hold_detections(sharded.predict_arrays(frames), one.predict_arrays(frames))
 
 
 def test_export_round_trip_graph_equals_native(tmp_path):

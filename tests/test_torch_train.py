@@ -4,8 +4,9 @@ YOLOv8n, nc = 4, 64², batch 2: JAX's ``init_params(PRNGKey(0))`` carried
 across with ``params_from_jax``, images and targets made with numpy. The
 JAX loss and gradients come from one jitted ``value_and_grad`` a module.
 Bounds: loss rtol 1e-5; every gradient leaf within a relative L2 of 1e-4
-(the JAX forward fuses the neck, the port does not: equal up to reduction
-order). AdamW against ``optax.adamw`` on identical gradients for 3 steps:
+(the JAX forward fuses the neck, the port's train step does not: equal up
+to reduction order; tests/test_torch_neck_fusion.py holds the fused
+one). AdamW against ``optax.adamw`` on identical gradients for 3 steps:
 params and moments within 1e-6 absolute. A whole step's parameters are not
 compared elementwise: at step 1 Adam moves each weight by about ±lr
 whatever its gradient's size, so sign noise on near-zero gradients flips
@@ -61,7 +62,7 @@ def _inputs(seed):
 
 def _port_loss_and_grads(tree, images, targets):
     model = params_from_jax(build_yolo("yolov8", "n", NC), tree)
-    train.make_train_step(model, HW)  # to the CPU, fp32, taking gradients
+    train.make_train_step(model, HW, device="cpu")  # to the CPU, fp32, taking gradients
     anchors = torch.from_numpy(train.anchor_centers(HW))
     tg = {k: torch.from_numpy(np.asarray(v)) for k, v in targets.items()}
     loss = train.detection_loss(model, torch.from_numpy(images), tg, anchors)
@@ -141,7 +142,7 @@ def test_adamw_matches_optax_over_three_steps(jax_side):
     jp = jparams
     jstate = tx.init(jp)
     model = params_from_jax(build_yolo("yolov8", "n", NC), tree)
-    train.make_train_step(model, HW)
+    train.make_train_step(model, HW, device="cpu")
     opt = train.make_optimizer(model, lr)
     rng = np.random.default_rng(11)
     for _ in range(3):
@@ -165,7 +166,7 @@ def test_adamw_matches_optax_over_three_steps(jax_side):
 def test_opt_state_round_trips_through_its_tree(jax_side):
     _, tree, _ = jax_side
     model = params_from_jax(build_yolo("yolov8", "n", NC), tree)
-    init_fn, step_fn = train.make_train_step(model, HW)
+    init_fn, step_fn = train.make_train_step(model, HW, device="cpu")
     state = init_fn(0)
     images, targets = _inputs(3)
     state, _ = step_fn(state, images, targets)
@@ -182,13 +183,13 @@ def test_opt_state_round_trips_through_its_tree(jax_side):
 
 def test_v5_is_refused():
     with pytest.raises(ValueError, match="supports yolov8"):
-        train.make_train_step(build_yolo("yolov5", "n", NC), HW)
+        train.make_train_step(build_yolo("yolov5", "n", NC), HW, device="cpu")
 
 
 def test_trainer_model_runs_plain_and_takes_gradients():
     model = build_yolo("yolov8", "n", NC)
     model.pallas_stem = model.pallas_decode = "on"
-    init_fn, step_fn = train.make_train_step(model, HW, learning_rate=1e-3)
+    init_fn, step_fn = train.make_train_step(model, HW, learning_rate=1e-3, device="cpu")
     assert model.pallas_stem == "off" and model.pallas_decode == "off"
     state = init_fn(0)
     assert all(p.requires_grad for p in model.parameters())

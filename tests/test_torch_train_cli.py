@@ -238,7 +238,57 @@ def test_jax_checkpoint_serves_in_the_port_and_seeds_training(jax_run, tmp_path)
         np.testing.assert_array_equal(g, w)
 
 
-def test_mesh_beyond_one_device_is_refused():
-    assert _run(["--steps", "0", *TRAIN, "--mesh", "1,1"])[0] == 0
-    with pytest.raises(ValueError, match="Queue A item 7"):
-        main(["--steps", "1", *TRAIN, "--mesh", "2,1"])
+def _losses(text):
+    return [float(v) for v in re.findall(r"loss\s+([-\d.]+)", text)]
+
+
+def test_mesh_trains_as_one_device(tmp_path):
+    """``--mesh 4,2`` (4 x 2 entries of the CPU: each image a row, every
+    conv's output channels over two ranks) takes the steps ``--mesh 1,1``
+    takes: the global batch's loss at each step, as one device computes it
+    (reduction order aside), and a checkpoint of the same tree."""
+    runs = {}
+    for mesh in ("1,1", "4,2"):
+        out = tmp_path / f"mesh{mesh.replace(',', '')}.npz"
+        rc, text = _run(["--steps", "2", "--log-every", "1", *TRAIN, "--mesh", mesh,
+                         "--out", str(out)])
+        assert rc == 0, text
+        runs[mesh] = (_losses(text), _tree(out))
+    (one, tree1), (eight, tree8) = runs["1,1"], runs["4,2"]
+    assert len(one) == len(eight) == 2
+    np.testing.assert_allclose(eight, one, rtol=1e-4)
+    import jax
+
+    leaves1, leaves8 = jax.tree_util.tree_leaves(tree1), jax.tree_util.tree_leaves(tree8)
+    assert jax.tree_util.tree_structure(tree1) == jax.tree_util.tree_structure(tree8)
+    assert all(a.shape == b.shape and np.isfinite(b).all() for a, b in zip(leaves1, leaves8))
+
+
+def test_mesh_resume_continues_the_run(tmp_path):
+    """A resume file written under ``--mesh 2,2`` resumes under ``2,2``
+    (the sharded parameters and their moments scattered back from it) as
+    under ``1,1``: the same loss at the resumed step, and the same moments
+    in the file each run writes after it."""
+    import shutil
+
+    import jax
+
+    made = tmp_path / "made"
+    assert _run(["--steps", "1", *TRAIN, "--mesh", "2,2", "--checkpoint-dir", str(made)])[0] == 0
+    runs = {}
+    for mesh in ("2,2", "1,1"):
+        ckpt = tmp_path / mesh.replace(",", "")
+        shutil.copytree(made, ckpt)
+        rc, text = _run(["--steps", "2", "--log-every", "1", *TRAIN, "--mesh", mesh,
+                         "--checkpoint-dir", str(ckpt), "--resume"])
+        assert rc == 0 and "resumed from" in text, text
+        runs[mesh] = (_losses(text), _tree(ckpt / "train_state.npz"))
+    (loss_m, state_m), (loss_1, state_1) = runs["2,2"], runs["1,1"]
+    assert len(loss_m) == len(loss_1) == 1
+    np.testing.assert_allclose(loss_m, loss_1, rtol=1e-4)
+    assert state_m["step"] == state_1["step"] == 2
+    assert state_m["opt_state"]["count"] == state_1["opt_state"]["count"] == 2
+    for key in ("mu", "nu"):
+        for a, b in zip(jax.tree_util.tree_leaves(state_1["opt_state"][key]),
+                        jax.tree_util.tree_leaves(state_m["opt_state"][key])):
+            np.testing.assert_allclose(b, a, rtol=1e-3, atol=1e-6)
