@@ -74,7 +74,12 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
    pass, on 8 of the 1080p frames (64 tiles of 640x640 in two steps, then
    the whole frames in a third): B1, B2 and B3 launched on every step;
    fp32 detections with every kernel on against every kernel off, frame by
-   frame; tiles, steps and ms a frame;
+   frame; tiles, steps and ms a frame; then the s2d early backbone ("s2d",
+   ``run_s2d``): ``s2d_backbone: on`` against the default at bf16 and
+   fp32, buckets 16, 32 and 128: B3 not launched, B1, B2 and B6 as on the
+   main path; fp32 detections held as sets, bf16 model outputs within the
+   bf16 fidelity bound; the forward by CUDA events and replayed as a CUDA
+   graph;
 9. ResNet-50 (224, 1000 classes, bucket 32, seeded weights) on 32
    synthetic 1080p frames with ``host_resize: off`` (B4 stretch), bf16 and
    fp32, top-5 against ``pallas_preprocess: off``; one step with
@@ -98,7 +103,13 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
     tree (B4 ``stretch``), top-5 equal to ``TorchResNetEngine``'s; and
     ``ConvInteger``, ``MatMulInteger``, ``QLinearConv``, ``QLinearMatMul``,
     ``DequantizeLinear`` on single-node graphs, bit-equal to the numpy
-    oracle;
+    oracle; the graph quantised to QDQ by the port's
+    ``scripts/quantize_model.py`` (calibrated on 2 synthetic frames) and
+    served through the graph path on the card (B4 once, B1 twice) and on
+    the CPU on 8 of the frames: detections held as sets at the fp32
+    detector bounds, model outputs held at the fused-QDQ bounds with the
+    CPU on the card's activation levels, the level flips counted
+    (``run_qdq``);
 12. serving artifacts ("artifact"): the main path, the device-resize
     step, int8, YOLOv5n, ResNet-50 ``full``, CNN-LSTM ``full`` and the
     YOLOv8n ONNX graph, each exported on the card into a ``.rvae`` and
@@ -107,7 +118,11 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
     (``rvae_*``: B1 twice, B2, B3 and B6 once on the main path; B4 once on
     the full-frame steps); export seconds, artifact bytes, startup (load +
     warmup against building the live engine from its checkpoint + warmup)
-    and step time against the live engine's;
+    and step time against the live engine's; one artifact for two
+    platforms (``platforms=["cuda", "cpu"]``): on the card bit-equal to the
+    card's live engine (``rvae_platforms``), on the CPU bit-equal to a live
+    CPU engine, and a ``cpu``-only artifact refused on the card in the JAX
+    package's words (``run_platforms``);
 13. training and evaluation ("train"): one YOLOv8n train step at 640
     (nc 80, the seeded weights, 2 labeled synthetic images), its loss and
     every gradient leaf on the card (TF32 off) against the port on the CPU;
@@ -132,7 +147,12 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
     entries of the card; three train steps at 640, batch 16, under (2, 2)
     against (1, 1) on the same seed, losses within 1e-5 relative; step
     times of every case beside one device's (a sharded step on one card
-    is slower: recorded, not a target);
+    is slower: recorded, not a target); then the (dp, sp, tp) mesh
+    (2, 2, 2) over the card named 8 times (``run_mesh3``, fp32, images
+    split by height over sp): the forward and the selected step against
+    one device, the device-resize step (B4 once a dp shard), B1 2, B2 1,
+    B6 1 a dp shard and B3 0, halo copies a forward, three train steps at
+    batch 16 against (1, 1, 1) and the three-axis ``dryrun_multichip(8)``;
 15. the pipelines: ``AnalyticsPipeline`` with 32 pooled ``synthetic://``
     1080p streams at 25 fps on YOLOv8n for about 15 s, then 8 such streams
     on ResNet-50 with ``host_resize: off`` for about 5 s;
@@ -1958,7 +1978,149 @@ def run_onnx(params, frames, resnet_params):
     del reng, nat
     out["int_ops"] = check_int_ops()
     torch.cuda.empty_cache()
+    qdq_paths, out["qdq"] = run_qdq(path, frames)
+    paths.update(qdq_paths)
+    torch.cuda.empty_cache()
     return paths, out
+
+
+QDQ_FRAMES = 8  # the QDQ engines' bucket: the CPU serves it too
+
+
+def run_qdq(path: str, frames, card=torch.device("cuda", 0)):
+    """The QDQ-quantised YOLOv8n ("onnx" line, ``qdq``): the seeded graph
+    at ``path`` quantised by the port's ``scripts/quantize_model.py``
+    (QDQ, calibrated on 2 synthetic frames letterboxed to 640), served
+    through the graph path (``create_detector``, ``graph_precision: fp32``)
+    on the card (B4 once, B1 twice, B6 once, no B2 or B3) and on the CPU,
+    on 8 of the 1080p frames. Every ``QuantizeLinear`` rounds to the
+    nearest level, so where the two devices' fp32 sums fall on either side
+    of a half level a level flips and the difference is carried forward
+    through every later layer and NMS. So the CPU engine serves the frames
+    on the card's levels (its graph with each ``QuantizeLinear`` output an
+    input, fed what the card's graph computed), which leaves each op's own
+    rounding: its model outputs held against the card's at rtol 1e-4, atol
+    1e-5 (tests/test_torch_onnx_graph.py's fused-QDQ bounds), its
+    detections as sets (``hold_set``) at tests/test_torch_onnx_serving.py's
+    fp32 detector bounds (scores 1e-3, boxes 0.5 px), and each layer's CPU
+    levels within one level of the card's, the flips counted. The CPU
+    engine running free (its own levels) is reported: the frames whose
+    detections agree and the largest output difference. ``card``: the
+    device of the card engine."""
+    from realtime_analytics_tpu_torch.engine.detector import _calibration_frames, create_detector
+    from realtime_analytics_tpu_torch.models.onnx_lite import OnnxGraph
+    from realtime_analytics_tpu_torch.models.onnx_torch import compile_graph
+    from realtime_analytics_tpu_torch.ops import _cuda
+    from realtime_analytics_tpu_torch.scripts import quantize_model
+
+    wdir = Path(path).parent
+    calib = wdir / "qdq_calib.npy"
+    np.save(calib, np.concatenate([f.transpose(0, 3, 1, 2)
+                                   for f in _calibration_frames((HW, HW), n=2)]))
+    qdq = str(wdir / "yolov8n_seeded_qdq.onnx")
+    t0 = time.perf_counter()
+    rc = quantize_model.main(["--model", path, "--out", qdq, "--calib", str(calib),
+                              "--samples", "2", "--format", "qdq", "--log-level", "WARNING"])
+    quantize_s = time.perf_counter() - t0
+    assert rc == 0, "quantize_model failed"
+    sub = frames[:QDQ_FRAMES]
+    cfg = detector_config(model_path=qdq, precision="fp32", graph_precision="fp32",
+                          confidence_threshold=ONNX_CONF, max_batch_size=QDQ_FRAMES,
+                          batch_buckets=[QDQ_FRAMES], device=str(card))
+    eng = create_detector(cfg)
+    assert eng.model.graph_backed and eng.compute_dtype == torch.float32
+    eng.predict_arrays(sub)
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.reset()
+    res = eng.predict_arrays(sub)
+    paths = {"onnx_qdq": _cuda.LAUNCHES.snapshot()}
+    log(f"onnx_qdq path launches {json.dumps(paths['onnx_qdq'])}")
+    require_counts("onnx_qdq", paths["onnx_qdq"],
+                   dict(letterbox=1, row_gather=2, nms_keep=1, decode_v8=0, fused_stem=0))
+    assert np.isfinite(res.boxes_xyxy).all() and (res.num_valid > 0).all()
+    step_ms, _ = timed_ms(lambda: eng.predict_arrays(sub), 5)
+
+    # the card's graph with every activation level as an output, the CPU's
+    # with every level an input
+    g = eng.model.graph
+    qs = [q for q in g.nodes if q.op_type == "QuantizeLinear" and q.inputs[0] not in g.initializers]
+    assert qs, "no activation QuantizeLinear in the QDQ graph"
+    outs, levels = list(g.outputs), [q.outputs[0] for q in qs]
+    seen = {}
+    card_fn = compile_graph(g, outs + levels)
+
+    def card_run(feeds):
+        r = card_fn(feeds)
+        seen["card"], seen["levels"] = r[:len(outs)], r[len(outs):]
+        return r[:len(outs)]
+
+    eng.model._fn = card_run
+    with torch.inference_mode():
+        res = eng.predict_arrays(sub)
+    taken = {id(q) for q in qs}
+    pin_fn = compile_graph(OnnxGraph(nodes=[n for n in g.nodes if id(n) not in taken],
+                                     initializers=g.initializers,
+                                     inputs=[g.inputs[0]] + levels, outputs=outs),
+                           outs + [q.inputs[0] for q in qs])
+
+    def cpu_run(feeds):
+        r = pin_fn({**feeds, **{n: lv.cpu() for n, lv in zip(levels, seen["levels"])}})
+        seen["cpu"], seen["pre"] = r[:len(outs)], r[len(outs):]
+        return r[:len(outs)]
+
+    cpu_cfg = dataclasses.replace(cfg, device="cpu")
+    cpu = create_detector(cpu_cfg)
+    cpu.model._fn = cpu_run
+    with torch.inference_mode():
+        res_pinned = cpu.predict_arrays(sub)
+    flips, values = 0, 0
+    for q, pre, lv in zip(qs, seen["pre"], seen["levels"]):
+        scale = torch.tensor(np.array(g.initializers[q.inputs[1]], np.float32))
+        zp = np.asarray(g.initializers[q.inputs[2]])
+        info = np.iinfo(zp.dtype)
+        mine = torch.clamp(torch.round(pre.float() / scale) + float(zp), info.min, info.max)
+        d = (mine - lv.cpu().float()).abs()
+        assert float(d.max()) <= 1.0, f"{q.name}: the CPU's levels differ by more than one"
+        flips += int((d > 0).sum())
+        values += d.numel()
+    pinned_d = 0.0
+    for a, b in zip(seen["card"], seen["cpu"]):
+        a, b = a.float().cpu(), b.float()
+        pinned_d = max(pinned_d, float((a - b).abs().max()))
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    log(f"QDQ model outputs, card against the CPU on the card's levels: max |delta| "
+        f"{pinned_d:.3g} (rtol 1e-4, atol 1e-5); {flips} of {values} levels flip "
+        f"({len(qs)} QuantizeLinear)")
+    _, score_d, box_d = hold_set("QDQ detections, card against the CPU on the card's levels",
+                                 res, res_pinned, score_tol=1e-3, box_tol=0.5)
+
+    # the CPU on its own levels: reported
+    free = create_detector(cpu_cfg)
+    free_fn = free.model._fn
+
+    def free_run(feeds):
+        seen["free"] = free_fn(feeds)
+        return seen["free"]
+
+    free.model._fn = free_run
+    res_free = free.predict_arrays(sub)
+    free_d = max(float((a.float().cpu() - b.float()).abs().max())
+                 for a, b in zip(seen["card"], seen["free"]))
+    differ, _, free_score_d, free_box_d = paired(res, res_free, 0.5)
+    log(f"QDQ, card against the CPU on its own levels (reported): max |output delta| "
+        f"{free_d:.3g}; {len(sub) - len(differ)}/{len(sub)} frames with equal counts and "
+        f"classes, paired max |score| delta {free_score_d:.3g}, max |box| delta "
+        f"{free_box_d:.3g} px")
+    summary = dict(quantize_s=quantize_s, quantize_linear_nodes=len(qs), frames=QDQ_FRAMES,
+                   step_ms=step_ms, detection_score_max_delta=score_d,
+                   detection_box_max_delta_px=box_d, output_max_delta=pinned_d,
+                   level_flips=flips, levels_compared=values,
+                   free_running_output_max_delta=free_d,
+                   free_running_frames_equal=len(sub) - len(differ),
+                   free_running_score_max_delta=free_score_d,
+                   free_running_box_max_delta_px=free_box_d)
+    log("onnx qdq " + json.dumps(dict(summary, card=CARD)))
+    return paths, summary
 
 
 # ---------------------------------------------------------------------------
@@ -2079,7 +2241,82 @@ def run_artifact(params, frames, frames720, resnet_params):
         assert np.isfinite(got[0]).all()
         del live, eng
         torch.cuda.empty_cache()
+    plat_paths, out["platforms"] = run_platforms(params, frames)
+    paths.update(plat_paths)
     return paths, out
+
+
+PLATFORM_FRAMES = 4  # the two-platform artifact's bucket: the CPU serves it too
+
+
+def run_platforms(params, frames, card=torch.device("cuda", 0)):
+    """One ``.rvae`` for two platforms (``platforms=["cuda", "cpu"]``, the
+    CLI's ``--platforms cuda,cpu``): the main path's YOLOv8n (fp32, bucket
+    4, the host pick) exported from the card engine, its CPU programs
+    traced on a twin on the CPU. Served on the card, equal bit for bit to
+    the card's live engine (``rvae_platforms``: B1 2, B2, B3 and B6 once);
+    served on the CPU, equal bit for bit to a live CPU engine on the same
+    weights; a ``cpu``-only artifact refused on the card."""
+    import os
+
+    from realtime_analytics_tpu_torch.config import ConfigError
+    from realtime_analytics_tpu_torch.engine.detector import create_detector
+    from realtime_analytics_tpu_torch.engine.export import export_serving_artifact
+    from realtime_analytics_tpu_torch.ops import _cuda
+
+    wdir = ROOT / "build" / "chip_smoke"
+    sub = frames[:PLATFORM_FRAMES]
+    src_hw = tuple(sub.shape[1:3])
+    cfg = detector_config(model_path=saved_tree("yolov8n_seeded.npz", params), precision="fp32",
+                          max_batch_size=PLATFORM_FRAMES, batch_buckets=[PLATFORM_FRAMES],
+                          device=str(card))
+    live = create_detector(cfg)
+    rvae = str(wdir / "platforms.rvae")
+    t0 = time.perf_counter()
+    meta = export_serving_artifact(live, rvae, [src_hw], platforms=["cuda", "cpu"])
+    export_s = time.perf_counter() - t0
+    assert meta["platforms"] == ["cuda", "cpu"] and "device" not in meta
+    rows = {p["platform"]: p for p in meta["programs"]}
+    eng = create_detector(dataclasses.replace(cfg, model_path=rvae))
+    want = live.predict_arrays(sub)
+    eng.predict_arrays(sub)
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.reset()
+    got = eng.predict_arrays(sub)
+    paths = {"rvae_platforms": _cuda.LAUNCHES.snapshot()}
+    require_counts("rvae_platforms", paths["rvae_platforms"],
+                   dict(row_gather=2, decode_v8=1, fused_stem=1, nms_keep=1, letterbox=0))
+    fields = ("boxes_xyxy", "scores", "class_ids", "num_valid")
+    card_equal = all(np.array_equal(getattr(got, f), getattr(want, f)) for f in fields)
+    t0 = time.perf_counter()
+    cpu_cfg = dataclasses.replace(cfg, device="cpu")
+    cpu_live = create_detector(cpu_cfg)
+    cpu_eng = create_detector(dataclasses.replace(cpu_cfg, model_path=rvae))
+    cpu_live.predict_arrays(sub)  # the CPU's first convolution of a shape may round apart
+    cpu_eng.predict_arrays(sub)
+    a, b = cpu_live.predict_arrays(sub), cpu_eng.predict_arrays(sub)
+    cpu_s = time.perf_counter() - t0
+    cpu_equal = all(np.array_equal(getattr(a, f), getattr(b, f)) for f in fields)
+    only = str(wdir / "cpu_only.rvae")
+    export_serving_artifact(live, only, [src_hw], platforms=["cpu"])
+    try:
+        create_detector(dataclasses.replace(cfg, model_path=only))
+        refusal = None
+    except ConfigError as exc:
+        refusal = str(exc)
+    summary = dict(platforms=meta["platforms"], programs={k: v["file"] for k, v in rows.items()},
+                   export_s=export_s, artifact_bytes=os.path.getsize(rvae),
+                   cpu_only_artifact_bytes=os.path.getsize(only),
+                   params=len(meta["params"]), card_equal_to_live=card_equal,
+                   cpu_equal_to_live=cpu_equal, cpu_detections=int(a.num_valid.sum()),
+                   cpu_phase_s=cpu_s, cpu_only_refused_on_card=refusal)
+    log("artifact platforms " + json.dumps(dict(summary, card=CARD)))
+    assert card_equal, "the two-platform artifact on the card differs from the live engine"
+    assert cpu_equal and int(a.num_valid.sum()) > 0, \
+        "the two-platform artifact on the CPU differs from the live CPU engine"
+    assert refusal and "exported for platforms ['cpu'], current device is 'cuda' — re-export " \
+        "on this platform" in refusal, "a cpu-only artifact served on the card"
+    return paths, summary
 
 
 # ---------------------------------------------------------------------------
@@ -2404,6 +2641,73 @@ def run_train(params):
 # ---------------------------------------------------------------------------
 
 
+S2D_BUCKETS = (16, 32, 128)
+
+
+def run_s2d(params, frames):
+    """The s2d early backbone ("s2d"): the main path's YOLOv8n with
+    ``s2d_backbone: on`` (nodes 0-3 over space-to-depth tensors, in place
+    of B3) against the default (``auto``: off on the card, B3 on), at bf16
+    and fp32, buckets 16, 32 and 128 (the 1080p frames repeated): kernels a
+    step (B1 2, B2 1, B6 1, B3 0 with s2d on); fp32 detections held as sets
+    at the fp32 bound of every kernel on vs off, bf16 model outputs within
+    the bf16 fidelity bound (conf 0.02, median box 1 px) and bf16 frames
+    equal reported; the forward by CUDA events (10 calls back to back) and
+    replayed as a CUDA graph, on, off, off, on."""
+    from realtime_analytics_tpu_torch.engine.detector import TorchYoloEngine
+    from realtime_analytics_tpu_torch.ops import _cuda
+    from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
+
+    many = np.concatenate([frames] * (max(S2D_BUCKETS) // len(frames)))
+    paths, out = {}, {}
+    for prec in ("bf16", "fp32"):
+        kw = dict(precision=prec, batch_buckets=list(S2D_BUCKETS), max_batch_size=max(S2D_BUCKETS))
+        on = TorchYoloEngine(detector_config(s2d_backbone="on", **kw), params=params)
+        off = TorchYoloEngine(detector_config(**kw), params=params)
+        assert on.model.s2d_prep is not None and not off._s2d_for_bucket(16)
+        for b in S2D_BUCKETS:
+            fr = many[:b]
+            on.predict_arrays(fr)
+            torch.cuda.synchronize()
+            _cuda.LAUNCHES.reset()
+            res_on = on.predict_arrays(fr)
+            name = f"s2d_{prec}_b{b}"
+            paths[name] = launches = _cuda.LAUNCHES.snapshot()
+            require_counts(name, launches, dict(row_gather=2, decode_v8=1, nms_keep=1,
+                                                fused_stem=0, letterbox=0))
+            res_off = off.predict_arrays(fr)
+            row = dict(kernels_per_step=launches)
+            if prec == "fp32":
+                _, row["score_max_delta"], row["box_max_delta_px"] = hold_set(
+                    f"{name}: s2d on against off", res_on, res_off, score_tol=1e-4, box_tol=1e-2)
+            else:
+                got, want = model_outputs(on, fr), model_outputs(off, fr)
+                row["conf_max_delta"] = conf_d = (got["conf"] - want["conf"]).abs().max().item()
+                row["box_median_delta_px"] = box_med = (
+                    got["boxes_xyxy"] - want["boxes_xyxy"]).abs().median().item()
+                row["frames_equal"] = compare(res_on, res_off)[0]
+                log(f"{name}: bf16 model outputs s2d on against off: max |conf| delta "
+                    f"{conf_d:.4g} (< 0.02), median |box| delta {box_med:.4g} px (< 1); "
+                    f"{row['frames_equal']}/{b} frames equal (reported)")
+                assert conf_d < 0.02 and box_med < 1.0, f"{name}: s2d drifts from the plain path"
+            spec = letterbox_spec(fr.shape[1:3], on.input_hw)
+            sel = torch.from_numpy(on.host_prepare(fr, fr.shape[1:3])[0]).cuda()
+            ev, gr = {"on": [], "off": []}, {"on": [], "off": []}
+            with torch.inference_mode():
+                x = on._pad_cast(sel, spec)
+                for k, e in (("on", on), ("off", off), ("off", off), ("on", on)):
+                    ev[k].append(cuda_ms(lambda: e._forward_selected(x), iters=10, warmup=2))
+                    gr[k].append(graph_us(lambda: e._forward_selected(x), launches=1,
+                                          replays=10) / 1e3)
+            row.update(forward_events_ms_on=ev["on"], forward_events_ms_off=ev["off"],
+                       forward_graph_ms_on=gr["on"], forward_graph_ms_off=gr["off"])
+            out[name] = row
+            log(f"s2d {name} " + json.dumps(dict(row, card=CARD)))
+        del on, off
+        torch.cuda.empty_cache()
+    return paths, out
+
+
 def hold_one_device(name, got, want):
     """A sharded engine's detections against one device's at
     tests/test_parallel.py's tolerances (boxes rtol 1e-4 atol 1e-2 px,
@@ -2551,6 +2855,110 @@ def run_mesh(params, frames, frames720, resnet_params, bf16_res,
         f"{train['1x1']['losses']}, max rel {rel:.3g} (<= 1e-5)")
     assert rel <= 1e-5, "the sharded train step's loss is not one device's"
     out["train"] = dict(train, loss_max_rel=rel)
+    mesh3_paths, out["mesh3"] = run_mesh3(params, frames, frames720, card)
+    paths.update(mesh3_paths)
+    return paths, out
+
+
+def run_mesh3(params, frames, frames720, card):
+    """The (dp, sp, tp) mesh (2, 2, 2) over the card named 8 times, fp32,
+    640 (``use_mesh``; images split over dp and by height over sp): the
+    forward (model outputs at tests/test_parallel.py's rtol 1e-4, atol 1e-3)
+    and the selected step on the 32 1080p frames against one device (B3 off
+    on both), the device-resize step on the 720p frames, launches (B1 2,
+    B2 1, B6 1 a dp shard, B3 0, B4 once a dp shard on the full frames),
+    halo copies a forward; three train steps at batch 16 under (2, 2, 2)
+    against (1, 1, 1), ms a step; ``dryrun_multichip(8)`` (three-axis)."""
+    from realtime_analytics_tpu_torch.engine.detector import TorchYoloEngine
+    from realtime_analytics_tpu_torch.models.yolo import build_yolo
+    from realtime_analytics_tpu_torch.ops import _cuda
+    from realtime_analytics_tpu_torch.parallel.dryrun import dryrun_multichip
+    from realtime_analytics_tpu_torch.parallel.mesh import AXES_SP, make_mesh
+    from realtime_analytics_tpu_torch.parallel.train import make_train_step, synthetic_targets
+
+    paths, out = {}, {}
+    mesh3 = make_mesh(8, axis_names=AXES_SP, devices=[card] * 8)
+
+    def counted(name, run, x, want):
+        run(x)
+        torch.cuda.synchronize()
+        _cuda.LAUNCHES.reset()
+        res = run(x)
+        paths[name] = _cuda.LAUNCHES.snapshot()
+        log(f"{name} launches {json.dumps(paths[name])}")
+        require_counts(f"{name} path", paths[name], want)
+        return res
+
+    ref = TorchYoloEngine(detector_config(precision="fp32", pallas_stem="off"), params=params)
+    eng = TorchYoloEngine(detector_config(precision="fp32"), params=params)
+    eng.use_mesh(mesh3)
+    assert eng.model.pallas_stem == "off" and eng.model.fuse_neck
+    got, want = model_outputs(eng, frames), model_outputs(ref, frames)
+    halo = eng.sharded.halo_copies
+    deltas = {}
+    for k in ("conf", "boxes_xyxy"):
+        deltas[k] = float((got[k] - want[k]).abs().max())
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-3)
+    cls_agree = float((got["cls"] == want["cls"]).float().mean())
+    log(f"mesh (2, 2, 2) forward against one device, fp32: max |conf| delta "
+        f"{deltas['conf']:.3g}, max |box| delta {deltas['boxes_xyxy']:.3g} px, class "
+        f"agreement {cls_agree:.6f}, {halo} halo copies a forward")
+    res = counted("mesh3_selected", eng.predict_arrays, frames,
+                  dict(row_gather=4, decode_v8=2, nms_keep=2, fused_stem=0, letterbox=0))
+    held = hold_one_device("mesh (2, 2, 2), fp32 main step", res, ref.predict_arrays(frames))
+    out["selected"] = dict(held, forward_conf_max_delta=deltas["conf"],
+                           forward_box_max_delta_px=deltas["boxes_xyxy"],
+                           forward_class_agreement=cls_agree, halo_copies_per_forward=halo,
+                           step_ms=timed_ms(lambda: eng.predict_arrays(frames), 5)[0],
+                           one_device_step_ms=timed_ms(lambda: ref.predict_arrays(frames), 5)[0])
+    del eng, ref
+    kw = dict(precision="fp32", host_resize="off")
+    eng = TorchYoloEngine(detector_config(**kw), params=params)
+    eng.use_mesh(mesh3)
+    res = counted("mesh3_resize", eng.predict_arrays, frames720,
+                  dict(letterbox=2, row_gather=4, decode_v8=2, nms_keep=2, fused_stem=0))
+    ref = TorchYoloEngine(detector_config(pallas_stem="off", **kw), params=params)
+    out["device_resize"] = dict(
+        hold_one_device("mesh (2, 2, 2), fp32 device-resize step", res,
+                        ref.predict_arrays(frames720)),
+        step_ms=timed_ms(lambda: eng.predict_arrays(frames720), 5)[0],
+        one_device_step_ms=timed_ms(lambda: ref.predict_arrays(frames720), 5)[0])
+    del eng, ref
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    images = rng.uniform(0, 1, (16, HW, HW, 3)).astype(np.float32)
+    targets = synthetic_targets(rng, 16, 4, (HW, HW), 80)
+    train = {}
+    for name, shape in (("1x1x1", (1, 1, 1)), ("2x2x2", (2, 2, 2))):
+        n = int(np.prod(shape))
+        model = build_yolo("yolov8", "n", 80)
+        init_fn, step_fn = make_train_step(model, (HW, HW), mesh=make_mesh(
+            n, shape=shape, axis_names=AXES_SP, devices=[card] * n))
+        state = init_fn(0)
+        torch.cuda.synchronize()
+        _cuda.LAUNCHES.reset()
+        losses, times = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, images, targets)
+            losses.append(float(loss))
+            times.append((time.perf_counter() - t0) * 1e3)
+        paths[f"mesh3_train_{name}"] = _cuda.LAUNCHES.snapshot()
+        train[name] = dict(losses=losses, step_ms=times,
+                           halo_copies_per_forward=state.net.halo_copies)
+        del model, state
+    rel = max(abs(a - b) / abs(b) for a, b in zip(train["2x2x2"]["losses"],
+                                                   train["1x1x1"]["losses"]))
+    log(f"train at 640, batch 16, (2, 2, 2) against (1, 1, 1): losses "
+        f"{train['2x2x2']['losses']} vs {train['1x1x1']['losses']}, max rel {rel:.3g} (<= 1e-5)")
+    assert rel <= 1e-5, "the (2, 2, 2) train step's loss is not one device's"
+    out["train"] = dict(train, loss_max_rel=rel)
+    t0 = time.perf_counter()
+    out["dryrun_8"] = dict(dryrun_multichip(8, [card] * 8), seconds=time.perf_counter() - t0)
+    log(f"dryrun_multichip(8) {json.dumps(out['dryrun_8'])}")
+    assert out["dryrun_8"]["mesh"] == {"dp": 2, "sp": 2, "tp": 2}
+    log("mesh3 " + json.dumps(dict(out, card=CARD)))
     return paths, out
 
 
@@ -2930,6 +3338,11 @@ def main() -> int:
     paths["tiled"], tiled = run_tiled(params, frames[:8])
     log("tiled " + json.dumps(dict(tiled, card=card)))
     lap("tiled")
+    s2d_paths, s2d = run_s2d(params, frames)
+    paths.update(s2d_paths)
+    log("s2d " + json.dumps(dict(s2d, card=card)))
+    lap("s2d")
+    torch.cuda.empty_cache()
     resnet_params = resnet_synthetic_params(build_resnet("resnet50", 1000), seed=0)
     resnet_paths, resnet = run_resnet(resnet_params, frames)
     paths.update(resnet_paths)

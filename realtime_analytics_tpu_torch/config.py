@@ -266,9 +266,10 @@ class DetectorConfig:
     # frame and reuse the lean pad+cast selected step. auto = on for cuda,
     # off for cpu (odd-integer ratios still take the exact pixel-pick path).
     host_resize: str = "auto"  # auto | on | off
-    # Space-to-depth early backbone: a layout tactic for TPU lanes in the
-    # reference. Accepted so one YAML drives both packages; a no-op on the
-    # port (logged once), ROADMAP.md Queue A ("TPU layout tactics").
+    # Space-to-depth early backbone (models/s2d.py): YOLO nodes 0-3 over
+    # s2d tensors, exact up to accumulation order, before B3 where both
+    # apply. The JAX engine's policy: on = on; auto decides per bucket on a
+    # single-chip TPU only, so it is off on cuda and cpu; off = off.
     s2d_backbone: str = "auto"  # auto | on | off
     # Fused P1/P2 stem: YOLO nodes 0+1 in one kernel with the P1 tile in
     # shared memory (B3, csrc/stem.cu). "interpret" is accepted for YAML

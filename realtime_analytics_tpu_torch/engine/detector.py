@@ -97,7 +97,8 @@ from ..models.weights import (
     resnet_params_from_jax,
     resnet_synthetic_params,
 )
-from ..models.yolo import build_yolo, size_from_model_path
+from ..models.s2d import s2d_conv_weight
+from ..models.yolo import YoloModel, build_yolo, size_from_model_path
 from ..ops.boxes import unletterbox_boxes
 from ..ops.int8 import QuantConv, pack_int8_weight
 from ..ops.letterbox import (
@@ -168,11 +169,20 @@ class BaseDetector(abc.ABC):
         n = int(np.prod(shape))
         if devices is None and self.device.type == "cpu":
             devices = [self.device] * n
-        self.mesh = make_mesh(n, shape=shape, devices=devices)
-        if self.mesh.devices[0, 0] != self.device:
-            raise ConfigError(f"the mesh's first device {self.mesh.devices[0, 0]} is not the "
+        self.use_mesh(make_mesh(n, shape=shape, devices=devices))
+
+    def use_mesh(self, mesh) -> None:
+        """Serve over ``mesh``: the model over it (``ShardedModel``), B3
+        off. ``_init_mesh`` comes here with the (dp, tp) mesh of
+        ``mesh_shape``; a (dp, sp, tp) mesh, which no config key names (the
+        JAX engine's ``mesh_shape`` is [dp, tp] too), is given here by the
+        caller."""
+        if mesh.lead(0) != self.device:
+            raise ConfigError(f"the mesh's first device {mesh.lead(0)} is not the "
                               f"engine's device {self.device}")
-        self.sharded = ShardedModel(self.model, self.mesh)
+        if isinstance(self.model, YoloModel):
+            self.model.pallas_stem = "off"
+        self.mesh, self.sharded = mesh, ShardedModel(self.model, mesh)
 
     def _round_mesh(self, bucket: int) -> int:
         """In mesh mode the batch shards over dp, so buckets round up to a
@@ -356,14 +366,9 @@ class TorchYoloEngine(PreparedState, BaseDetector):
                 self.model.fuse_neck = fuse_neck_on(self.device)
                 if self.model.fuse_neck:
                     self.model.prepare_neck()
-        if config.s2d_backbone != "off":
-            logger.info(
-                "detector.s2d_backbone=%s is a TPU layout tactic of the JAX "
-                "package; it is a no-op on the PyTorch engine",
-                config.s2d_backbone,
-            )
         self._nms_gather = "torch" if config.pallas_gather == "off" else "kernel"
         self._w0_folded = self._stem_folded = self._stem_plain = None
+        self._s2d_w0_folded = None
         if not self._graph_backed:
             self.model.pallas_decode = "off" if config.pallas_decode == "off" else "on"
             self.model.pallas_stem = "off" if config.pallas_stem == "off" else "on"
@@ -381,6 +386,12 @@ class TorchYoloEngine(PreparedState, BaseDetector):
                 self._stem_folded = self.model.stem_weights(self.compute_dtype,
                                                             self._w0_folded)
                 self._stem_plain = self.model.stem_weights(self.compute_dtype)
+            if self._s2d_for_bucket(None) and not self.model.act_int8:
+                # the s2d prefix's weights, scattered once (models/s2d.py)
+                self.model.prepare_s2d()
+                if self.model.s2d_prep is not None:
+                    self._s2d_w0_folded = s2d_conv_weight(self._w0_folded, 4, 2, 2,
+                                                          self.model.nodes[0].p)
         self._class_mask = None
         if config.classes:
             mask = torch.zeros(config.num_classes, dtype=torch.bool)
@@ -458,6 +469,8 @@ class TorchYoloEngine(PreparedState, BaseDetector):
             if sw is not None:
                 tree[name] = {f.name: getattr(sw, f.name) for f in dataclasses.fields(sw)
                               if isinstance(getattr(sw, f.name), torch.Tensor)}
+        if self._s2d_w0_folded is not None:
+            tree["s2d_w0_folded"] = {"w": self._s2d_w0_folded[0]}
         if self._class_mask is not None:
             tree["class_mask"] = self._class_mask
         return tree
@@ -471,6 +484,8 @@ class TorchYoloEngine(PreparedState, BaseDetector):
             sw = getattr(self, "_" + name)
             if sw is not None:
                 setattr(self, "_" + name, dataclasses.replace(sw, **state[name]))
+        if self._s2d_w0_folded is not None:
+            self._s2d_w0_folded = (state["s2d_w0_folded"]["w"], *self._s2d_w0_folded[1:])
         if self._class_mask is not None:
             self._class_mask = state["class_mask"]
 
@@ -582,11 +597,27 @@ class TorchYoloEngine(PreparedState, BaseDetector):
           spec.pad_left:spec.pad_left + spec.new_w] = sel_u8
         return x
 
+    def _s2d_for_bucket(self, batch: Optional[int]) -> bool:
+        """The JAX engine's policy for the s2d early backbone (``batch``:
+        the step's bucket; None: any): ``on`` means on; ``auto`` is decided
+        per bucket on a single-chip TPU only, so it is off on ``cuda`` and
+        ``cpu``; ``off`` means off. The prefix itself skips int8 weights
+        and inputs whose sides are not multiples of 4."""
+        return self.config.s2d_backbone == "on"
+
+    def _s2d_kwargs(self, batch: int, folded: bool) -> Dict:
+        """The forward's s2d arguments for a step of ``batch`` (a foreign
+        graph has no YOLO prefix)."""
+        if self._graph_backed or not self._s2d_for_bucket(batch):
+            return {}
+        return dict(s2d=True, s2d_w0=self._s2d_w0_folded if folded else None)
+
     def _forward_selected(self, x: torch.Tensor):
         """The model on a ``_pad_cast`` input: the stem-folded weights take
         raw BGR pixels."""
         return self.net(x, reduce_scores=True, w0=self._w0_folded,
-                        stem_weights=self._stem_folded)
+                        stem_weights=self._stem_folded,
+                        **self._s2d_kwargs(x.shape[0], folded=True))
 
     def _step_selected(self, sel_u8: torch.Tensor, spec):
         """Over host-picked input: pad + cast, forward with the stem-folded
@@ -613,7 +644,8 @@ class TorchYoloEngine(PreparedState, BaseDetector):
         """Over full frames [B, H, W, 3] uint8 BGR: device letterbox (B4 or
         plain), forward with the plain stem weights, NMS, un-letterbox."""
         x = self._device_letterbox(frames_u8, spec)
-        out = self.net(x, reduce_scores=True, stem_weights=self._stem_plain)
+        out = self.net(x, reduce_scores=True, stem_weights=self._stem_plain,
+                       **self._s2d_kwargs(x.shape[0], folded=False))
         return self._finish(out, spec)
 
     def _finish(self, out, spec):

@@ -42,14 +42,29 @@ Artifact layout (zip), as the JAX package's:
     meta.json                        format/engine/config echo + program index
     params/<flat-key>.bin            raw little-endian tensor bytes
     programs/<H>x<W>_b<B>_<kind>.pt2 one torch.export.save'd program
+                                     (programs/<platform>/... with several)
 
 ``params/`` keys use the JAX package's flat key scheme (``a/b/#0/c``, dict
 keys percent-escaped; ``_flatten_params``): ``model/<state-dict name>`` for
 the module's parameters and buffers and ``prep/...`` for the prepared
 state. ``meta.json`` has the JAX package's fields, with ``framework:
-"torch"``, ``torch_version`` and ``device`` in place of ``jax_version`` and
-``platforms``, and each program's input keys. A JAX-made ``.rvae`` (its
-programs are ``jax.export`` bytes) is refused by name.
+"torch"`` and ``torch_version`` in place of ``jax_version``, and each
+program's platform, file and input keys. A JAX-made ``.rvae`` (its programs
+are ``jax.export`` bytes) is refused by name.
+
+Platforms (``platforms=``, the CLI's ``--platforms``, as the JAX
+package's): ``cuda`` and ``cpu``, by default the engine's own device type.
+``torch.export`` bakes in the device of its example inputs and the
+``rva`` ops dispatch by device, so each platform gets its own programs,
+traced on a twin of the engine that lives on that device (its model and
+prepared state copied there, and the device's own rules: the fused neck on
+the card only): the card's programs launch the kernels, the CPU's run
+their plain versions. The weights are written once: a tensor that both
+platforms' programs read is one ``params/`` entry. Serving takes the
+current device type's programs and refuses an artifact without them, in
+the JAX package's words. An artifact of one platform keeps the layout of
+the package's earlier artifacts (``device`` in ``meta.json``, programs at
+``programs/<name>.pt2``), which also still serve, as one-platform ones.
 
 Wire-in: ``detector.model_path: something.rvae`` routes ``create_detector``
 to the exported engine matching ``model_type``; export with the
@@ -83,7 +98,9 @@ from .detector import (
     TorchYoloEngine,
     _cheapest_bucket,
     fp32_means_fp32,
+    fuse_neck_on,
     pick_device,
+    to_graph_device,
 )
 from .temporal import TorchTemporalEngine
 
@@ -271,6 +288,10 @@ def _program_name(src_hw: Tuple[int, int], batch: int, kind: str) -> str:
     return f"{src_hw[0]}x{src_hw[1]}_b{batch}_{kind}"
 
 
+def _program_file(name: str, platform: str, several: bool) -> str:
+    return f"programs/{platform}/{name}.pt2" if several else f"programs/{name}.pt2"
+
+
 def _program_for(engine, kind: str, src_hw: Tuple[int, int], batch: int):
     """(step on the device input, input shape, kind tag) for one program:
     the same host-prepare decision the engine makes when it serves."""
@@ -299,17 +320,70 @@ def _graph_backed(engine) -> bool:
                 or getattr(getattr(engine, "model", None), "graph_backed", False))
 
 
+PLATFORMS = ("cuda", "cpu")
+
+
+def export_platforms(platforms: Optional[Sequence[str]], default: str) -> List[str]:
+    """The platforms an export asks for (None: ``[default]``), checked:
+    ``tpu`` is refused by name, ``cuda`` needs a visible card."""
+    out = list(dict.fromkeys(str(p).strip().lower() for p in (platforms or [default])))
+    for p in out:
+        if p == "tpu":
+            raise ValueError("platform 'tpu': TPU programs are the JAX package's "
+                             "(realtime_analytics_tpu.scripts.export_engine); the PyTorch "
+                             f"package exports for {', '.join(PLATFORMS)}")
+        if p not in PLATFORMS:
+            raise ValueError(f"unknown platform {p!r}: the PyTorch package exports for "
+                             f"{', '.join(PLATFORMS)}")
+        if p == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("platform 'cuda' needs a CUDA card to trace its programs and "
+                               "none is visible: export with --platforms cpu here, and the "
+                               "card's programs on a machine with one")
+    return out
+
+
+def _to_device(tree, dev: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def _platform_engine(engine, platform: str, srcs: Sequence[Tuple[int, int]]):
+    """``engine`` on ``platform``'s device: itself when it is there, else a
+    twin whose model and prepared state (B4's tables of ``srcs`` included)
+    are copies on that device, under that device's rules. The twin's
+    tensors hold the engine's values, so both platforms' programs read the
+    same weights."""
+    if platform == engine.device.type:
+        return engine
+    dev = (torch.device("cpu") if platform == "cpu"
+           else torch.device("cuda", torch.cuda.current_device()))
+    model = copy.deepcopy(engine.model)
+    if _graph_backed(engine):
+        to_graph_device(model, dev)
+    else:
+        model.to(dev)
+    if isinstance(engine, TorchYoloEngine) and not _graph_backed(engine):
+        model.fuse_neck = fuse_neck_on(dev)
+        if model.fuse_neck:
+            model.prepare_neck()
+    twin = engine.bind(model, _to_device(engine.prepared_state(srcs), dev))
+    twin.device = dev
+    return twin
+
+
 def export_serving_artifact(
     engine,
     path: str,
     src_hws: Sequence[Tuple[int, int]],
     buckets: Optional[Sequence[int]] = None,
+    platforms: Optional[Sequence[str]] = None,
 ) -> Dict:
-    """Trace ``engine``'s serving step for every (src_hw x bucket) and write
-    the self-contained artifact to ``path``. Returns the meta dict (also in
-    the artifact). The artifact serves only on the device type it was
-    exported on (``cuda`` or ``cpu``), as a TensorRT engine is bound to its
-    card."""
+    """Trace ``engine``'s serving step for every (src_hw x bucket) on each
+    of ``platforms`` (``cuda``, ``cpu``; default: the engine's device type)
+    and write the self-contained artifact to ``path``. Returns the meta dict
+    (also in the artifact). The artifact serves only on the device types it
+    was exported for, as a TensorRT engine is bound to its card."""
     kind = _engine_kind(engine)
     if getattr(engine, "mesh", None) is not None:
         raise ValueError(
@@ -328,10 +402,17 @@ def export_serving_artifact(
     if kind == "yolo" and engine.config.tiling and tuple(engine.input_hw) not in src_hws:
         src_hws.append(tuple(engine.input_hw))
     buckets = sorted(set(buckets or engine.config.resolved_buckets))
-    plans = [(src_hw, b, *_program_for(engine, kind, src_hw, b))
-             for src_hw in src_hws for b in buckets]
-    flat = _program_inputs(engine, list(dict.fromkeys(
-        src for src, _, _, _, tag in plans if tag == "full")))
+    plans, flat = {}, {}
+    for platform in export_platforms(platforms, engine.device.type):
+        eng = _platform_engine(engine, platform, src_hws)
+        plans[platform] = (eng, [(src_hw, b, *_program_for(eng, kind, src_hw, b))
+                                 for src_hw in src_hws for b in buckets])
+        inputs = _program_inputs(eng, list(dict.fromkeys(
+            src for src, _, _, _, tag in plans[platform][1] if tag == "full")))
+        for key, t in inputs.items():
+            if key in flat and not torch.equal(flat[key].cpu(), t.cpu()):
+                raise ValueError(f"{key} differs between the platforms' engines")
+            flat.setdefault(key, t)
 
     # write to a temp file and rename on success: a failed export must not
     # leave a structurally-valid-looking partial zip at the target
@@ -357,41 +438,48 @@ def export_serving_artifact(
 def _write_artifact_zip(path, engine, kind, plans, flat) -> None:
     cfg = engine.config
     programs: List[Dict] = []
+    several = len(plans) > 1
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
         for key, t in flat.items():
             zf.writestr(f"params/{key}.bin", _tensor_bytes(t))
-        # 'rsz' steps take input_hw-shaped batches whatever the source, so
-        # one program per bucket serves every source: write it once and
-        # alias later index rows to it
-        shared_rsz: Dict[int, Tuple[str, List[int], List[str]]] = {}
-        for src_hw, b, step, in_shape, tag in plans:
-            if tag == "rsz" and b in shared_rsz:
-                name, shape, keys = shared_rsz[b]
-            else:
-                inputs = _program_inputs(engine, [src_hw] if tag == "full" else [])
-                keys = list(inputs)
-                x = torch.zeros(in_shape, dtype=torch.uint8, device=engine.device)
-                name = _program_name(src_hw, b, tag)
-                with torch.no_grad():
-                    ep = torch.export.export(_Program(engine, step), (inputs, x), strict=False)
-                _holds_no_state(ep, name, _graph_backed(engine))
-                ep.example_inputs = None  # else the weights would be saved with it
-                buf = io.BytesIO()
-                torch.export.save(ep, buf)
-                shape = list(in_shape)
-                zf.writestr(f"programs/{name}.pt2", buf.getvalue())
-                if tag == "rsz":
-                    shared_rsz[b] = (name, shape, keys)
-            programs.append({"src_h": src_hw[0], "src_w": src_hw[1], "batch": b,
-                             "kind": tag, "in_shape": shape, "name": name,
-                             "inputs": keys})
-            logger.info("exported %s (device=%s)", name, engine.device.type)
+        for platform, (eng, steps) in plans.items():
+            # 'rsz' steps take input_hw-shaped batches whatever the source,
+            # so one program per bucket serves every source: write it once
+            # and alias later index rows to it
+            shared_rsz: Dict[int, Tuple[str, List[int], List[str]]] = {}
+            for src_hw, b, step, in_shape, tag in steps:
+                if tag == "rsz" and b in shared_rsz:
+                    name, shape, keys = shared_rsz[b]
+                else:
+                    inputs = _program_inputs(eng, [src_hw] if tag == "full" else [])
+                    keys = list(inputs)
+                    x = torch.zeros(in_shape, dtype=torch.uint8, device=eng.device)
+                    name = _program_name(src_hw, b, tag)
+                    with torch.no_grad():
+                        ep = torch.export.export(_Program(eng, step), (inputs, x),
+                                                 strict=False)
+                    _holds_no_state(ep, name, _graph_backed(eng))
+                    ep.example_inputs = None  # else the weights would be saved with it
+                    buf = io.BytesIO()
+                    torch.export.save(ep, buf)
+                    shape = list(in_shape)
+                    zf.writestr(_program_file(name, platform, several), buf.getvalue())
+                    if tag == "rsz":
+                        shared_rsz[b] = (name, shape, keys)
+                programs.append({"src_h": src_hw[0], "src_w": src_hw[1], "batch": b,
+                                 "kind": tag, "in_shape": shape, "name": name,
+                                 "platform": platform,
+                                 "file": _program_file(name, platform, several),
+                                 "inputs": keys})
+                logger.info("exported %s (platform=%s)", name, platform)
         meta = {
             "format_version": FORMAT_VERSION,
             "engine": kind,
             "framework": "torch",
             "torch_version": torch.__version__,
-            "device": engine.device.type,
+            "platforms": list(plans),
+            # one platform: the earlier artifacts' layout, which names it so
+            **({} if several else {"device": next(iter(plans))}),
             "model_type": cfg.model_type,
             "input_size": list(engine.input_hw),
             "precision": cfg.precision,
@@ -446,18 +534,24 @@ class _ArtifactMixin:
                 raise ConfigError(
                     f"{path}: artifact serves a '{meta.get('engine')}' engine, but "
                     f"model_type '{config.model_type}' needs '{expected_engine}'")
-            if self.device.type != meta["device"]:
+            here = self.device.type
+            # a one-platform artifact (the earlier layout included) names it
+            # as ``device``
+            platforms = [meta["device"]] if "device" in meta else meta["platforms"]
+            if here not in platforms:
                 raise ConfigError(
-                    f"{path}: exported for device '{meta['device']}', current device is "
-                    f"'{self.device.type}' — re-export on this device")
+                    f"{path}: exported for platforms {platforms}, current device is "
+                    f"'{here}' — re-export on this platform, i.e. re-export on this device "
+                    f"with --platforms {here}")
+            rows = [p for p in meta["programs"] if p.get("platform", here) == here]
+            keys = {k for p in rows for k in p["inputs"]}
             self._params = {key: _tensor_from(zf.read(f"params/{key}.bin"), spec, self.device)
-                            for key, spec in meta["params"].items()}
-        if not meta["programs"]:
+                            for key, spec in meta["params"].items() if key in keys}
+        if not rows:
             raise ConfigError(f"{path}: artifact contains no serving programs — re-export "
                               "with at least one source resolution")
         self.meta = meta
-        self._programs = {(p["src_h"], p["src_w"], p["batch"], p["kind"]): p
-                          for p in meta["programs"]}
+        self._programs = {(p["src_h"], p["src_w"], p["batch"], p["kind"]): p for p in rows}
         self._steps: Dict[str, Tuple[Callable, Dict[str, torch.Tensor]]] = {}
         self.input_hw = (int(meta["input_size"][0]), int(meta["input_size"][1]))
         self._graph_backed = bool(meta.get("graph_backed", False))
@@ -487,7 +581,7 @@ class _ArtifactMixin:
         # the bucket machinery (batcher max_batch, clip flush target,
         # warmup) tracks the artifact's buckets, and the host-prepare
         # decision traced into each program's input shape tracks export's
-        buckets = sorted({p["batch"] for p in meta["programs"]})
+        buckets = sorted({p["batch"] for p in rows})
         self.config = dataclasses.replace(
             config, batch_buckets=buckets, max_batch_size=buckets[-1],
             host_select=meta["host_select"], host_resize=meta["host_resize"])
@@ -496,7 +590,7 @@ class _ArtifactMixin:
         return sorted({b for (h, w, b, _kind) in self._programs if (h, w) == tuple(src_hw)})
 
     def _missing(self, src_hw, batch=None, kind=None) -> str:
-        have = ", ".join(sorted({p["name"] for p in self.meta["programs"]}))
+        have = ", ".join(sorted({p["name"] for p in self._programs.values()}))
         want = (_program_name(tuple(src_hw), batch, kind) if batch is not None
                 else f"{src_hw[0]}x{src_hw[1]}")
         return (f"{self.config.model_path} has no program for {want} (exported: {have}) "
@@ -522,7 +616,7 @@ class _ArtifactMixin:
         hit = self._steps.get(entry["name"])
         if hit is None:
             with zipfile.ZipFile(self.config.model_path) as zf:
-                data = zf.read(f"programs/{entry['name']}.pt2")
+                data = zf.read(entry.get("file", f"programs/{entry['name']}.pt2"))
             program = torch.export.load(io.BytesIO(data)).module()
             inputs = {k: self._params[k] for k in entry["inputs"]}
             out = program(inputs, x)  # checks every input against the program's

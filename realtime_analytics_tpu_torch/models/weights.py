@@ -101,6 +101,7 @@ def params_from_jax(model: YoloModel, tree: Mapping) -> YoloModel:
         if name not in layers:
             raise KeyError(f"layers.{name} missing from the params tree")
         load_tree(mod, layers[name], f"layers.{name}")
+    model.s2d_prep = None  # scattered from the weights before this load
     return model
 
 

@@ -35,6 +35,11 @@ upsampled tensor and the concat are never written. Off for int8 weights
 ``prepare_neck`` keeps the split weight halves of a serving model; these
 are plain cuDNN convs, which the JAX package computes in XLA.
 
+s2d (``forward(..., s2d=True)``, the engine's ``s2d_backbone: on``):
+nodes 0-3 run over space-to-depth tensors (``models/s2d.py``) where the
+prefix applies (float weights, H and W multiples of 4), taking precedence
+over B3 as in the JAX package; ``prepare_s2d`` scatters the weights once.
+
 int8: every ``ConvAct`` that holds int8 weights runs the full int8 conv
 (``ops/int8.py``), as the JAX package's ``act_int8``; the v5 head conv
 stays weight-only (dequantised in bf16), as the JAX package's
@@ -59,6 +64,16 @@ from ..ops.stem import (
     stem_geometry_ok,
 )
 from .layers import ConvAct, conv2d, make_divisible, max_pool, upsample2x
+from .s2d import (
+    S2DWeight,
+    c2f_s2d,
+    c3_s2d,
+    plain_scatter,
+    prefix_convs,
+    s2d_conv,
+    s2d_conv_weight,
+    space_to_depth,
+)
 
 # ---------------------------------------------------------------------------
 # Graph spec (identical to the reference)
@@ -210,12 +225,17 @@ class DetectV8(nn.Module):
                 box_f = blk(box_f)
             for blk in self.cv3[lvl]:
                 cls_f = blk(cls_f)
-            # NHWC views of the channels_last logits (a no-op layout check:
-            # convs on channels_last inputs already return channels_last)
-            levels.append((
-                box_f.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1),
-                cls_f.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1),
-            ))
+            levels.append((box_f, cls_f))
+        return self.decode(levels, reduce_scores, decode)
+
+    def decode(self, logits: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+               reduce_scores: bool, decode: str) -> Dict[str, torch.Tensor]:
+        """Each level's (box, class) logits, NCHW -> the decoded outputs."""
+        # NHWC views of the channels_last logits (a no-op layout check:
+        # convs on channels_last inputs already return channels_last)
+        levels = [(b.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1),
+                   c.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1))
+                  for b, c in logits]
         strides = [float(s) for s in STRIDES[:len(levels)]]
         if reduce_scores:
             # the whole head in one call: on the card one launch that writes
@@ -256,18 +276,27 @@ class DetectV5(nn.Module):
 
     def forward(self, feats: Sequence[torch.Tensor],
                 reduce_scores: bool) -> Dict[str, torch.Tensor]:
+        return self.decode([self.raw(lvl, x) for lvl, x in enumerate(feats)], reduce_scores)
+
+    def raw(self, lvl: int, x: torch.Tensor) -> torch.Tensor:
+        """Level ``lvl``'s conv output, NCHW: weight-only, also for int8
+        weights (JAX ``_detect_v5``), the bias added to the rounded conv
+        output, as the JAX conv2d."""
+        conv = self.m[lvl]
+        return conv2d(x, conv.plain_weight(x.dtype)) + conv.bias.to(x.dtype)[:, None, None]
+
+    def decode(self, raws: Sequence[torch.Tensor],
+               reduce_scores: bool) -> Dict[str, torch.Tensor]:
         boxes_all, scores_all, conf_all, cls_all = [], [], [], []
-        for lvl, x in enumerate(feats):
+        for lvl, conv_out in enumerate(raws):
             stride = float(STRIDES[lvl])
-            n, _, h, w = x.shape
-            conv = self.m[lvl]  # weight-only, also for int8 weights (JAX _detect_v5)
-            # the bias added to the rounded conv output, as the JAX conv2d
-            raw = conv2d(x, conv.plain_weight(x.dtype)) + conv.bias.to(x.dtype)[:, None, None]
-            raw = raw.permute(0, 2, 3, 1).reshape(n, h, w, self.na, self.nc + 5)
+            n, _, h, w = conv_out.shape
+            dev = conv_out.device
+            raw = conv_out.permute(0, 2, 3, 1).reshape(n, h, w, self.na, self.nc + 5)
             y = torch.sigmoid(raw[..., :5].to(torch.float32))
             gy, gx = torch.meshgrid(
-                torch.arange(h, dtype=torch.float32, device=x.device),
-                torch.arange(w, dtype=torch.float32, device=x.device), indexing="ij")
+                torch.arange(h, dtype=torch.float32, device=dev),
+                torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
             anchors = self.anchors[lvl].to(torch.float32)  # [na, 2] input px
             cx = (y[..., 0] * 2.0 - 0.5 + gx[..., None]) * stride
             cy = (y[..., 1] * 2.0 - 0.5 + gy[..., None]) * stride
@@ -296,6 +325,24 @@ class DetectV5(nn.Module):
         return out
 
 
+class S2DPrepared(nn.Module):
+    """The s2d prefix's scattered conv weights (``YoloModel.prepare_s2d``),
+    as buffers, so that an exported program takes them as inputs, and
+    their geometry; keyed by the conv's name in the prefix (``2.m.0.cv1``;
+    a buffer name holds no dot)."""
+
+    def __init__(self):
+        super().__init__()
+        self.geometry: Dict[str, Tuple[int, Tuple[int, int]]] = {}
+
+    def put(self, name: str, wp: S2DWeight) -> None:
+        self.register_buffer(name.replace(".", "_"), wp[0], persistent=False)
+        self.geometry[name] = wp[1:]
+
+    def get(self, name: str) -> S2DWeight:
+        return (getattr(self, name.replace(".", "_")), *self.geometry[name])
+
+
 # ---------------------------------------------------------------------------
 # Model
 # ---------------------------------------------------------------------------
@@ -319,6 +366,8 @@ class YoloModel(nn.Module):
         self.pallas_decode = "off"
         self.fuse_neck = True
         self._fusions: Optional[Dict[int, str]] = None
+        self._s2d_ok: Optional[bool] = None
+        self.s2d_prep: Optional[S2DPrepared] = None  # prepare_s2d's weights
         self.layers = nn.ModuleDict()
         for i, node in enumerate(nodes):
             mod = self._make_node(i, node)
@@ -421,6 +470,59 @@ class YoloModel(nn.Module):
                 for conv in ((blk.cv1, blk.cv2) if isinstance(blk, C3) else (blk.cv1,)):
                     conv.split_input(self.channels[i])
 
+    def _s2d_prefix_ok(self) -> bool:
+        """The s2d prefix covers nodes 0..3 = conv(s2), conv(s2), c2f/c3,
+        conv(s2) with strictly chained single consumers: every published
+        v5/v8 layout (the JAX package's rule)."""
+        if self._s2d_ok is None:
+            ok = len(self.nodes) > 4
+            if ok:
+                n0, n1, n2, n3 = self.nodes[:4]
+                ok = (n0.kind == "conv" and n0.s == 2
+                      and n1.kind == "conv" and n1.s == 2 and n1.k == 3
+                      and n2.kind in ("c2f", "c3")
+                      and n3.kind == "conv" and n3.s == 2 and n3.k == 3)
+            if ok:
+                consumers: Dict[int, List[int]] = {}
+                for j, nd in enumerate(self.nodes):
+                    for s in nd.src:
+                        consumers.setdefault(s if s >= 0 else j - 1, []).append(j)
+                ok = all(consumers.get(i) == [i + 1] for i in range(3))
+            self._s2d_ok = ok
+        return self._s2d_ok
+
+    def prepare_s2d(self) -> None:
+        """Scatter the s2d prefix's conv weights (``models/s2d.py``) once,
+        on the weights as they now are: a serving model's preparation (a
+        load drops them). Under tp the prefix reads these whole."""
+        self.s2d_prep = None
+        if self.act_int8 or not self._s2d_prefix_ok():
+            return
+        prep = S2DPrepared()
+        for name, conv, fi, fo, stride in prefix_convs(self):
+            prep.put(name, plain_scatter(conv, fi, fo, stride))
+        self.s2d_prep = prep
+
+    def _apply_s2d_prefix(self, xc: torch.Tensor,
+                          w0: Optional[torch.Tensor]) -> torch.Tensor:
+        """Nodes 0..3 in space-to-depth layout on the NCHW input ``xc``;
+        returns node 3's output in the normal layout. ``w0``: node 0's
+        scattered override weight (the engine's folded stem)."""
+        weights = plain_scatter  # scattered here, or prepared once:
+        if self.s2d_prep is not None:
+            names = {id(conv): name for name, conv, *_ in prefix_convs(self)}
+
+            def weights(conv, fi, fo, stride):
+                return self.s2d_prep.get(names[id(conv)])
+
+        l0, l1, blk, l3 = (self.layers[str(i)] for i in range(4))
+        y = space_to_depth(xc, 4)  # [N, 48, H/4, W/4]
+        y = s2d_conv(y, w0 if w0 is not None else weights(l0, 4, 2, 2), l0.bias, 2)
+        y = s2d_conv(y, weights(l1, 2, 2, 2), l1.bias, 2)
+        block = c2f_s2d if self.nodes[2].kind == "c2f" else c3_s2d
+        y = block(blk, y, 2, weights)
+        return s2d_conv(y, weights(l3, 2, 1, 2), l3.bias, 1)
+
     def stem_ok(self, h: int, w: int, dtype: torch.dtype = torch.float32) -> bool:
         """The fused stem applies: the stem nodes fit with float weights
         (``stem_nodes_ok``) and the input geometry passes the kernel's gate
@@ -456,18 +558,30 @@ class YoloModel(nn.Module):
         self, x: torch.Tensor, reduce_scores: bool = False, *,
         w0: Optional[torch.Tensor] = None,
         stem_weights: Optional[StemWeights] = None,
+        s2d: bool = False,
+        s2d_w0: Optional[S2DWeight] = None,
     ) -> Dict[str, torch.Tensor]:
         """x: [N, H, W, 3] NHWC (RGB in [0, 1], or raw pixels when ``w0``
         is a folded stem weight). Returns {"boxes_xyxy": [N, A, 4]} plus
         {"scores": [N, A, nc]} or, with ``reduce_scores``, {"conf": [N, A],
         "cls": [N, A] int32}. ``stem_weights``: the fused stem's prepared
-        weights (else prepared here from the module and ``w0``)."""
+        weights (else prepared here from the module and ``w0``). ``s2d``:
+        run nodes 0-3 as the s2d prefix where it applies (float weights, H
+        and W multiples of 4), before B3, as the JAX package's ``apply``;
+        ``s2d_w0``: ``w0`` scattered (else scattered here)."""
         outs: List = [None] * len(self.nodes)
         fus = self._neck_fusions() if self.fuse_neck and not self.act_int8 else {}
         xc = x.permute(0, 3, 1, 2)  # NCHW view in channels_last memory
         prev = xc
         start = 0
-        if self.pallas_stem != "off" and self.stem_ok(x.shape[1], x.shape[2], x.dtype):
+        if (s2d and not self.act_int8 and self._s2d_prefix_ok()
+                and x.shape[1] % 4 == 0 and x.shape[2] % 4 == 0):
+            if s2d_w0 is None and w0 is not None:
+                s2d_w0 = s2d_conv_weight(w0, 4, 2, 2, self.nodes[0].p)
+            outs[3] = self._apply_s2d_prefix(xc, s2d_w0)
+            prev = outs[3]
+            start = 4
+        elif self.pallas_stem != "off" and self.stem_ok(x.shape[1], x.shape[2], x.dtype):
             sw = stem_weights or self.stem_weights(x.dtype, w0)
             outs[1] = fused_stem_p1p2(x.contiguous(), sw).permute(0, 3, 1, 2)
             prev = outs[1]

@@ -3,9 +3,9 @@
 Counterpart of ``realtime_analytics_tpu/parallel/mesh.py``. The JAX engine
 is single-controller: one process drives every device of its mesh, and
 GSPMD partitions each step. The port's mesh is the same in one process: an
-array of ``torch.device``s with named axes (dp, tp), driven by one
-controller, with no ``torch.distributed`` (a process group would change
-how the engine and the batcher are built).
+array of ``torch.device``s with named axes, (dp, tp) or (dp, sp, tp),
+driven by one controller, with no ``torch.distributed`` (a process group
+would change how the engine and the batcher are built).
 
 Sharding policy for the YOLO / ResNet / temporal params (JAX's rule,
 ``_leaf_spec``, on the JAX-layout tree: channels last):
@@ -15,7 +15,9 @@ Sharding policy for the YOLO / ResNet / temporal params (JAX's rule,
   * dense kernels [cin, cout]         -> cout over tp when divisible;
   * biases        [cout]              -> over tp when divisible;
   * the v5 ``anchors`` buffer and scalars -> replicated;
-  * activations                       -> batch over dp.
+  * activations                       -> batch over dp, and on a mesh
+    with an sp axis image height over sp (JAX's ``P("dp", "sp", None,
+    None)`` for the train step's images).
 
 A tp-sharded weight is one output-channel slice per tp rank, on that rank's
 device; a dp-sharded batch is one chunk per dp row. ``ShardedModel`` runs a
@@ -30,6 +32,12 @@ without an output-channel form (the LSTM) keep replicated weights.
 ``dp_map`` is ``jax.shard_map`` over dp: the kernels B1, B4 and B6 run once
 per dp shard on that shard's rows (``ops/gather.py``, ``ops/letterbox.py``,
 ``ops/nms.py``).
+
+The sp axis (``parallel/spatial.py``): each dp row's images split by height
+over the row's sp ranks, and a YOLO forward runs every conv, pool,
+upsample and concat on the bands, fetching the rows each op's outputs need
+from the ranks that hold them (GSPMD's halo exchanges, its
+collective-permutes); rank (r, s) runs its tp slices on ``devices[r, s, :]``.
 
 A device may appear more than once in a mesh: ``[cpu] * 8`` is the
 counterpart of XLA's virtual host devices (the tests' 8-device CPU mesh),
@@ -49,16 +57,25 @@ from ..models.layers import ConvAct, Dense
 from ..models.temporal import Conv3d
 
 AXES = ("dp", "tp")
+AXES_SP = ("dp", "sp", "tp")  # the three-axis form: sp splits image height
 
 
 class Mesh:
     """Named axes over an array of devices: ``devices[r, t]`` is dp row r,
-    tp rank t. ``shape`` maps each axis name to its size, in order."""
+    tp rank t (``devices[r, s, t]`` on a (dp, sp, tp) mesh). ``shape`` maps
+    each axis name to its size, in order; ``grid`` is the devices as
+    [dp, sp, tp] whatever the axes (sp 1 on a two-axis mesh)."""
 
     def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, devices.shape))
+        self.grid = devices.reshape(self.shape["dp"], self.shape.get("sp", 1),
+                                    self.shape["tp"])
+
+    def lead(self, r: int) -> torch.device:
+        """Dp row r's first device: where its shard of a batch lives."""
+        return self.grid[r, 0, 0]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.flat]})"
@@ -71,7 +88,8 @@ def make_mesh(
     devices: Optional[Sequence] = None,
 ) -> Mesh:
     """A (dp, tp) mesh over ``n_devices`` devices, JAX's default shape
-    (8 -> dp 4, tp 2). ``devices=None`` takes the visible cards
+    (8 -> dp 4, tp 2), or with ``axis_names=AXES_SP`` a (dp, sp, tp) one
+    (8 -> 2, 2, 2). ``devices=None`` takes the visible cards
     ``cuda:0..n-1`` and raises when fewer are visible; an explicit list may
     name one device more than once."""
     if devices is None:
@@ -100,9 +118,9 @@ def make_mesh(
     shape = tuple(int(v) for v in shape)
     if int(np.prod(shape)) != n:
         raise ValueError(f"mesh shape {shape} != device count {n}")
-    if len(shape) != len(axis_names) or set(axis_names) != set(AXES):
-        raise ValueError(f"mesh shape {shape} must name the axes {AXES} (got "
-                         f"{tuple(axis_names)}); the sp axis is not ported")
+    if tuple(axis_names) not in (AXES, AXES_SP) or len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} must name the axes {AXES} or {AXES_SP} "
+                         f"(got {tuple(axis_names)})")
     arr = np.empty(n, dtype=object)
     arr[:] = visible[:n]
     return Mesh(arr.reshape(shape), axis_names)
@@ -159,15 +177,16 @@ def param_shardings(params, mesh: Mesh):
 
 
 class Sharded(NamedTuple):
-    """A leaf placed on a mesh: ``pieces[r, t]`` is what device (r, t)
-    holds (its tp slice, or the whole leaf when replicated)."""
+    """A leaf placed on a mesh: ``pieces[r, t]`` (``pieces[r, s, t]``) is
+    what that device holds (its tp slice, or the whole leaf when
+    replicated)."""
 
     spec: Tuple
     pieces: np.ndarray
 
     def full(self) -> torch.Tensor:
-        """The whole leaf, joined from row 0 on its first device."""
-        row = self.pieces[0]
+        """The whole leaf, joined from the first tp row on its first device."""
+        row = self.pieces.reshape(-1, self.pieces.shape[-1])[0]
         if "tp" not in self.spec:
             return row[0]
         dim = self.spec.index("tp")
@@ -184,12 +203,12 @@ def shard_params(params, mesh: Mesh):
         whole = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(np.asarray(leaf))
         cache: Dict[Tuple[str, int], torch.Tensor] = {}  # one copy a (device, slice)
         pieces = np.empty(mesh.devices.shape, dtype=object)
-        for (r, t), dev in np.ndenumerate(mesh.devices):
-            rank = t if spec else 0
+        for idx, dev in np.ndenumerate(mesh.devices):
+            rank = idx[-1] if spec else 0
             if (str(dev), rank) not in cache:
                 part = whole.chunk(tp, dim=whole.dim() - 1)[rank] if spec else whole
                 cache[(str(dev), rank)] = part.to(dev).contiguous()
-            pieces[r, t] = cache[(str(dev), rank)]
+            pieces[idx] = cache[(str(dev), rank)]
         return Sharded(spec, pieces)
 
     return _tree_map(place, params)
@@ -311,7 +330,7 @@ def _dp_rows(fn, mesh: Mesh, *args: torch.Tensor):
         raise ValueError(f"a batch of {n} does not split over dp={dp}: round it up to a "
                          "multiple of dp")
     c = n // dp
-    outs = [fn(r, *(a[r * c:(r + 1) * c].to(mesh.devices[r, 0]) for a in args))
+    outs = [fn(r, *(a[r * c:(r + 1) * c].to(mesh.lead(r)) for a in args))
             for r in range(dp)]
     return _join_outputs(outs, args[0].device)
 
@@ -336,12 +355,24 @@ class ShardedModel:
     every row); rows on the same devices as row 0 call it directly. ``model`` must be on the mesh's
     first device. ``parameters`` are the sharded parameters (what a train
     step's optimizer updates); ``gather_into_module`` and
-    ``scatter_from_module`` copy the tp slices to and from ``model``."""
+    ``scatter_from_module`` copy the tp slices to and from ``model``.
+
+    On a (dp, sp, tp) mesh with sp > 1 a YOLO model's forward is banded
+    (``spatial.banded_forward``): each row's images split by height over
+    its sp ranks, each rank reads the weights copied to its own devices
+    (a no-op where they are row 0's), and ``halo_copies`` counts the
+    slices one rank fetched from another in the last call."""
 
     def __init__(self, model: nn.Module, mesh: Mesh):
         self.module, self.mesh = model, mesh
         tp = mesh.shape.get("tp", 1)
-        row0 = list(mesh.devices[0])
+        self.sp = mesh.shape.get("sp", 1)
+        if self.sp > 1:
+            from .spatial import check_banded
+
+            check_banded(model)
+        self.halo_copies = 0
+        row0 = list(mesh.grid[0, 0])
         self._pairs: List[Tuple[nn.Module, TpSplit]] = []
         for name, t in [*model.named_parameters(), *model.named_buffers()]:
             if t.device != row0[0]:
@@ -350,9 +381,8 @@ class ShardedModel:
         self.net = self._copy(model, row0, tp) if tp > 1 else model
         # each tensor's tp rank (replicated ones: 0, the row's first device)
         self._rank = {name: self._module_name(name)[1] or 0 for name, _ in self._tensors()}
-        self._direct = [all(mesh.devices[r, t] == mesh.devices[0, t]
-                            for t in range(mesh.devices.shape[1]))
-                        for r in range(mesh.devices.shape[0])]
+        self._direct = [all(mesh.grid[r, 0, t] == mesh.grid[0, 0, t] for t in range(tp))
+                        for r in range(mesh.shape["dp"])]
 
     def _copy(self, mod: nn.Module, row0: List[torch.device], tp: int) -> nn.Module:
         if _splits(mod, tp):
@@ -377,16 +407,23 @@ class ShardedModel:
         return self.net.named_parameters()
 
     def __call__(self, x: torch.Tensor, *args, **kwargs):
+        self.halo_copies = 0
         return _dp_rows(lambda r, xr: self._row(r, xr, args, kwargs), self.mesh, x)
 
     def _row(self, r: int, x: torch.Tensor, args, kwargs):
-        lead = self.mesh.devices[r, 0]
+        lead = self.mesh.lead(r)
         x = x.to(lead)
         args = tuple(_to(a, lead) for a in args)
         kwargs = {k: _to(v, lead) for k, v in kwargs.items()}
+        if self.sp > 1:
+            from .spatial import banded_forward
+
+            out, copies = banded_forward(self.net, self.mesh.grid[r], x, *args, **kwargs)
+            self.halo_copies += copies
+            return out
         if self._direct[r]:
             return self.net(x, *args, **kwargs)
-        state = {name: t.to(self.mesh.devices[r, self._rank[name]])
+        state = {name: t.to(self.mesh.grid[r, 0, self._rank[name]])
                  for name, t in self._tensors()}
         return torch.func.functional_call(self.net, state, (x, *args), kwargs)
 
@@ -412,7 +449,7 @@ class ShardedModel:
                 out[whole] = v
             else:
                 slices.setdefault(whole, {})[rank] = v
-        dev = self.mesh.devices[0, 0]
+        dev = self.mesh.lead(0)
         for whole, by_rank in slices.items():
             vs = [by_rank[t] for t in sorted(by_rank)]
             out[whole] = None if any(v is None for v in vs) else torch.cat(

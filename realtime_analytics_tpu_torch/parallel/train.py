@@ -1,11 +1,14 @@
-"""Detection training step, on one device or over a (dp, tp) mesh.
+"""Detection training step, on one device or over a (dp, tp) or (dp, sp, tp) mesh.
 
 Counterpart of ``realtime_analytics_tpu/parallel/train.py``: forward, the
 same anchor-free detection loss, backward and an AdamW update (optax's
 ``adamw`` defaults), on one card (or the CPU), or over an in-process
 (dp, tp) mesh (``parallel/mesh.py``): the batch splits over dp, conv
 output channels over tp, and the parameters and their AdamW moments are
-sharded by the same rule (``_leaf_spec``). The loss is the global batch's,
+sharded by the same rule (``_leaf_spec``). On a (dp, sp, tp) mesh the
+images also split by height over sp, as JAX's ``P("dp", "sp", None,
+None)`` (``parallel/spatial.py``); gradients reach row 0's tensors through
+the halo copies by autograd. The loss is the global batch's,
 as one device computes it: every row's outputs are joined on the mesh's
 first device before the loss, and each row's gradients reach the sharded
 parameters through autograd (the all-reduce). After each step the model's
@@ -189,7 +192,7 @@ def make_train_step(
             f"{getattr(model, 'version', '?')}"
         )
     if mesh is not None:
-        lead = mesh.devices[0, 0]
+        lead = mesh.lead(0)
         if device is not None and torch.device(device) != lead:
             raise ValueError(f"device {device} is not the mesh's first device {lead}")
         device = lead

@@ -6,8 +6,10 @@ docs/inference_backends.md "TensorRT" workflow): load a checkpoint once,
 export the serving step as ``torch.export`` programs for an explicit set of
 source resolutions and batch buckets (``engine/export.py``), and write one
 self-contained artifact that `detector.model_path: foo.rvae` serves from
-directly, on the device type it was exported on (the card by default;
-``--device cpu`` for the CPU).
+directly, on the device types it was exported for: ``--platforms
+cuda,cpu`` (JAX's flag) traces programs for each (``cuda`` needs a card;
+``tpu`` is the JAX package's), by default the engine's device type (the
+card; ``--device cpu`` for the CPU).
 
     realtime-analytics-torch-export --config config/sample-pipeline.yaml \
         --output yolov8n-h100.rvae --src 1080x1920 --src 480x854
@@ -72,7 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--device", default=None,
         help="the engine's device: auto|cuda|cuda:N (the card) or cpu (default: "
-             "detector config); the artifact serves on this device type only",
+             "detector config)",
+    )
+    p.add_argument(
+        "--platforms", default=None,
+        help="comma-separated export platforms, cuda and/or cpu (default: the "
+             "engine's device type); the artifact serves on these only",
     )
     p.add_argument("--log-level", default="INFO")
     return p
@@ -86,7 +93,7 @@ def main(argv: List[str] | None = None) -> int:
     )
     from ..config import DetectorConfig, load_config
     from ..engine.detector import create_detector
-    from ..engine.export import export_serving_artifact
+    from ..engine.export import export_platforms, export_serving_artifact
 
     src_hws = args.src
     if args.config:
@@ -165,16 +172,24 @@ def main(argv: List[str] | None = None) -> int:
               f"nc={model.nc} input={tuple(det_cfg.resolved_input_size)}")
         return 0
 
+    platforms = args.platforms.split(",") if args.platforms else None
+    if platforms:
+        try:  # refused before the engine is built
+            export_platforms(platforms, "cpu")
+        except (ValueError, RuntimeError) as exc:
+            print(f"--platforms {args.platforms}: {exc}", file=sys.stderr)
+            return 2
     engine = create_detector(det_cfg)  # any family: yolo/resnet/temporal
     meta = export_serving_artifact(
         engine,
         args.output,
         src_hws=src_hws or [(1080, 1920)],
+        platforms=platforms,
     )
     print(
         f"wrote {args.output}: {len(meta['programs'])} program(s) "
-        f"({', '.join(p['name'] for p in meta['programs'])}), "
-        f"device={meta['device']}"
+        f"({', '.join(sorted({p['name'] for p in meta['programs']}))}), "
+        f"platforms={meta['platforms']}"
     )
     return 0
 

@@ -190,12 +190,30 @@ def test_mesh_routes_serve(over):
     assert len(out) == 4
 
 
-def test_s2d_knob_is_a_logged_noop(caplog, weights_npz):
-    with caplog.at_level("INFO"):
-        eng = TorchYoloEngine(DetectorConfig(**_kw(weights_npz, s2d_backbone="on")))
-    assert any("s2d_backbone" in r.message and "no-op" in r.message
-               for r in caplog.records)
-    assert eng.model.pallas_stem == "on"
+def test_s2d_knob_is_a_logged_noop(weights_npz, frames, monkeypatch):
+    """``s2d_backbone: on`` runs the s2d prefix (nodes 0-3, its weights
+    scattered once) in place of B3, with the detections of the plain path;
+    ``auto`` is a no-op off the TPU (the JAX engine's policy): B3 runs."""
+    from realtime_analytics_tpu_torch.models import yolo
+
+    calls = []
+    stem, prefix = yolo.fused_stem_p1p2, yolo.YoloModel._apply_s2d_prefix
+    monkeypatch.setattr(yolo, "fused_stem_p1p2", lambda *a: calls.append("B3") or stem(*a))
+    monkeypatch.setattr(yolo.YoloModel, "_apply_s2d_prefix",
+                        lambda *a: calls.append("s2d") or prefix(*a))
+    on = TorchYoloEngine(DetectorConfig(**_kw(weights_npz, s2d_backbone="on")))
+    auto = TorchYoloEngine(DetectorConfig(**_kw(weights_npz, s2d_backbone="auto")))
+    assert on.model.pallas_stem == auto.model.pallas_stem == "on"
+    assert on._s2d_for_bucket(4) and not auto._s2d_for_bucket(4)
+    assert on.model.s2d_prep is not None and auto.model.s2d_prep is None
+    got = on.predict_arrays(frames)
+    assert calls == ["s2d"]
+    want = auto.predict_arrays(frames)
+    assert calls == ["s2d", "B3"]
+    np.testing.assert_array_equal(got.num_valid, want.num_valid)
+    np.testing.assert_array_equal(got.class_ids, want.class_ids)
+    np.testing.assert_allclose(got.boxes_xyxy, want.boxes_xyxy, atol=1e-2)
+    np.testing.assert_allclose(got.scores, want.scores, atol=1e-4)
 
 
 def test_profile_step_needs_a_card(capsys):

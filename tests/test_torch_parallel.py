@@ -10,8 +10,15 @@ scores rtol 5e-2 atol 5e-3). The port's sharded engine is also held
 against the JAX package's sharded engine on the same params and frames
 (tests/test_torch_engine.py's bounds: boxes atol 1e-2 px, scores atol
 1e-4), and the ResNet and temporal mesh engines against one device. The
-three ``sp`` cases of tests/test_parallel.py have no counterpart: the sp
-axis is not ported. YOLOv8n at 64², nc 8-16, batches of 8.
+three ``sp`` cases of tests/test_parallel.py have their counterparts on the
+(dp, sp, tp) mesh (2, 2, 2) (``parallel/spatial.py``): the train step
+lowers the loss (lr 1e-3, the port's rule above), its loss is one device's
+within 1e-6 relative, sharded inference equals one device at rtol 1e-4,
+atol 1e-3, and the engine's step over it equals one device's and the JAX
+package's three-axis sharded step at tests/test_torch_engine.py's bounds;
+each banded op (k1 s1, k3 s1, k3 s2, v5's k6 s2 p2, SPPF, the fused
+``up_concat``) at sp 2, 3 and 4 with uneven bands equals the whole op at
+fp32 rtol 1e-5, atol 1e-6. YOLOv8n at 64², nc 8-16, batches of 4-8.
 """
 
 import jax
@@ -24,6 +31,7 @@ from realtime_analytics_tpu_torch.engine.detector import TorchResNetEngine, Torc
 from realtime_analytics_tpu_torch.models.weights import params_to_tree, synthetic_params
 from realtime_analytics_tpu_torch.models.yolo import build_yolo
 from realtime_analytics_tpu_torch.parallel.mesh import (
+    AXES_SP,
     ShardedModel,
     batch_sharding,
     dp_map,
@@ -377,9 +385,10 @@ def test_temporal_mesh_engine_matches_one_device(model_type):
 def test_dryrun_multichip():
     from realtime_analytics_tpu_torch.parallel.dryrun import dryrun_multichip
 
-    out = dryrun_multichip(8, CPU8)
-    assert out["mesh"] == {"dp": 4, "tp": 2} and out["batch"] == 8
+    out = dryrun_multichip(8, CPU8)  # 8 entries: the three-axis mesh, as JAX's
+    assert out["mesh"] == {"dp": 2, "sp": 2, "tp": 2} and out["batch"] == 4
     assert all(np.isfinite(out["train_loss"])) and out["detections"] > 0
+    assert out["halo_copies"] > 0
 
 
 @pytest.mark.parametrize("model_type", ["resnet", "cnn_lstm"])
@@ -437,3 +446,197 @@ def test_mesh_engine_matches_jax_mesh_engine(model_type):
         assert len(g) > 0 and [d.class_id for d in g] == [d.class_id for d in w]
         np.testing.assert_allclose([d.confidence for d in g], [d.confidence for d in w],
                                    atol=1e-5, rtol=0)
+
+
+# -- the sp axis ------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def mesh3():
+    """The three-axis (dp, sp, tp) mesh the dry run takes at n = 8."""
+    return make_mesh(8, axis_names=AXES_SP, devices=CPU8)
+
+
+def test_mesh3_shape(mesh3):
+    assert mesh3.shape == {"dp": 2, "sp": 2, "tp": 2}
+    assert mesh3.grid.shape == (2, 2, 2)
+    placed = shard_params(params_to_tree(build_yolo("yolov8", "n", 8)), mesh3)
+    assert placed["layers"]["0"]["w"].pieces.shape == (2, 2, 2)
+    with pytest.raises(ValueError, match="must name the axes"):
+        make_mesh(8, axis_names=("dp", "tp", "sp"), devices=CPU8)
+
+
+def test_sharded_train_step_3axis_sp_halo(mesh3):
+    """The train step on (2, 2, 2): images split over dp and by height over
+    sp, the loss lowered over 3 steps, gradients reaching row 0's tensors
+    through the halo copies."""
+    model = build_yolo("yolov8", "n", nc=8)
+    init_fn, step_fn = make_train_step(model, (64, 64), learning_rate=1e-3, mesh=mesh3)
+    state = init_fn(0)
+    images, targets = _train_inputs(4)
+    losses = []
+    for _ in range(3):
+        state, loss = step_fn(state, images, targets)
+        losses.append(float(loss))
+    assert all(np.isfinite(losses))
+    assert losses[-1] < losses[0], f"loss did not decrease: {losses}"
+    assert state.net.halo_copies > 0
+    w = state.params["layers.1.parts.1.weight"]
+    torch.testing.assert_close(model.layers["1"].weight[w.shape[0]:], w, rtol=0, atol=0)
+
+
+def test_sp_train_loss_is_the_one_device_loss(mesh3):
+    """The loss under (2, 2, 2) is one device's on the whole batch, within
+    1e-6 relative, at every one of three steps; also with rows and ranks on
+    two device names of one memory (the copies through ``.to``)."""
+    images, targets = _train_inputs(4)
+    runs = []
+    for kw in (dict(device="cpu"), dict(mesh=mesh3),
+               dict(mesh=make_mesh(8, axis_names=AXES_SP, devices=["cpu", "cpu:0"] * 4))):
+        model = build_yolo("yolov8", "n", nc=8)
+        init_fn, step_fn = make_train_step(model, (64, 64), learning_rate=1e-3, **kw)
+        state = init_fn(0)
+        losses = []
+        for _ in range(3):
+            state, loss = step_fn(state, images, targets)
+            losses.append(float(loss))
+        runs.append(losses)
+    np.testing.assert_allclose(runs[1], runs[0], rtol=1e-6)
+    np.testing.assert_allclose(runs[2], runs[0], rtol=1e-6)
+
+
+@pytest.mark.parametrize("model_type", ["yolov8", "yolov5"])
+def test_sharded_inference_3axis_matches_single_device(mesh3, model_type):
+    """dp + sp (+ tp) sharded inference equals one device, the fused neck's
+    split 1x1s included; at sp 4 P5 (2 rows) leaves two ranks empty."""
+    from realtime_analytics_tpu_torch.models.weights import params_from_jax
+
+    model = build_yolo(model_type, "n", 16)
+    params_from_jax(model, synthetic_params(model, seed=0)).eval().to(
+        memory_format=torch.channels_last)
+    model.prepare_neck()
+    x = torch.from_numpy(np.random.default_rng(1).uniform(0, 1, (4, 64, 64, 3))
+                         .astype(np.float32))
+    with torch.inference_mode():
+        ref = model(x, reduce_scores=True)
+        for m in (mesh3, make_mesh(8, shape=(1, 4, 2), axis_names=AXES_SP, devices=CPU8)):
+            net = ShardedModel(model, m)
+            got = net(x, reduce_scores=True)
+            assert net.halo_copies > 0
+            for k in ref:
+                np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(), rtol=1e-4, atol=1e-3)
+
+
+def _banded_case(op, sp, gen):
+    from realtime_analytics_tpu_torch.models.layers import ConvAct
+    from realtime_analytics_tpu_torch.models.yolo import SPPF
+
+    def conv(cin, cout, k, s=1, p=None):
+        mod = ConvAct(cin, cout, k, s, p)
+        with torch.no_grad():
+            mod.weight.normal_(0, 0.3, generator=gen)
+            mod.bias.normal_(0, 0.1, generator=gen)
+        return mod
+
+    def t(*shape):
+        return torch.randn(shape, generator=gen).contiguous(memory_format=torch.channels_last)
+
+    skip = None
+    if op == "k1s1":
+        mod, x = conv(6, 8, 1), t(2, 6, 13, 9)
+    elif op == "k3s1":
+        mod, x = conv(6, 8, 3), t(2, 6, 13, 9)
+    elif op == "k3s2":
+        mod, x = conv(6, 8, 3, 2), t(2, 6, 13, 9)
+    elif op == "k6s2p2":
+        mod, x = conv(3, 8, 6, 2, 2), t(2, 3, 17, 10)
+    elif op == "sppf":
+        mod = SPPF(8, 8, 5)
+        with torch.no_grad():
+            for c in (mod.cv1, mod.cv2):
+                c.weight.normal_(0, 0.3, generator=gen)
+                c.bias.normal_(0, 0.1, generator=gen)
+        x = t(2, 8, 2 if sp > 2 else 5, 6)
+    else:  # the fused neck's split 1x1 over concat(up2x(x), skip)
+        mod, x, skip = conv(10, 8, 1), t(2, 6, 5, 4), t(2, 4, 10, 8)
+        if op == "up_concat_split":
+            mod.split_input(6)
+    return mod, x, skip
+
+
+@pytest.mark.parametrize("sp", [2, 3, 4])
+@pytest.mark.parametrize("op", ["k1s1", "k3s1", "k3s2", "k6s2p2", "sppf", "up_concat",
+                                "up_concat_split"])
+def test_banded_op_matches_whole(op, sp):
+    """One op over ``sp`` uneven bands, joined, equals the whole op."""
+    from realtime_analytics_tpu_torch.parallel.spatial import _Walk, band_rows
+
+    mod, x, skip = _banded_case(op, sp, torch.Generator().manual_seed(sp))
+    walk = _Walk(np.array([[x.device]] * sp, dtype=object))
+
+    def bands(t):
+        return [t[:, :, lo:hi] for lo, hi in band_rows(t.shape[2], sp)]
+
+    with torch.no_grad():
+        if op.startswith("up_concat"):
+            want, out = mod.up_concat(x, skip), walk.up_concat(mod, bands(x), bands(skip))
+        elif op == "sppf":
+            want, out = mod(x), walk.sppf(mod, bands(x))
+        else:
+            want, out = mod(x), walk.conv(mod, bands(x))
+    got, copies = walk.join(out), walk.copies
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+    assert len({hi - lo for lo, hi in band_rows(x.shape[2], sp)}) > 1  # uneven bands
+    assert (copies > 0) == (op not in ("k1s1",))
+
+
+def test_engine_3axis_step_matches_one_device_and_jax(tree):
+    """The engine's step with its model over (2, 2, 2) through ``use_mesh``
+    (the hook ``_init_mesh`` uses; no config key names sp, as in JAX): equal
+    to one device's, and to the JAX package's three-axis sharded step (its
+    params over the mesh, frames over dp and sp;
+    tests/test_parallel.py:123-148) on the same params and frames."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from realtime_analytics_tpu.config import DetectorConfig as JaxConfig
+    from realtime_analytics_tpu.engine.detector import JaxYoloEngine
+    from realtime_analytics_tpu.parallel.mesh import make_mesh as j_make_mesh
+    from realtime_analytics_tpu.parallel.mesh import shard_params as j_shard_params
+
+    kw = dict(model_path="__random__.pt", input_size=[64, 64], confidence_threshold=0.01,
+              max_batch_size=4, batch_buckets=[4], precision="fp32", warmup=False,
+              pre_nms_topk=64, max_detections=16, num_classes=16, host_select="off")
+    one = TorchYoloEngine(DetectorConfig(device="cpu", **kw), params=tree)
+    eng = TorchYoloEngine(DetectorConfig(device="cpu", **kw), params=tree)
+    eng.use_mesh(make_mesh(8, axis_names=AXES_SP, devices=CPU8))
+    assert eng.mesh.shape == {"dp": 2, "sp": 2, "tp": 2} and eng.model.pallas_stem == "off"
+    frames = _frames(13, n=4)
+    got = eng.predict_arrays(frames)
+    assert eng.sharded.halo_copies > 0
+    _hold(got, one.predict_arrays(frames))
+
+    jeng = JaxYoloEngine(JaxConfig(**kw), params=tree)
+    mesh3 = j_make_mesh(8, axis_names=("dp", "sp", "tp"))
+    step = jeng._get_step(4, HW)
+    with mesh3:
+        fsh = jax.device_put(frames, NamedSharding(mesh3, P("dp", "sp", None, None)))
+        b, s, c, n = (np.asarray(v) for v in jax.device_get(
+            step(j_shard_params(jeng.params, mesh3), fsh)))
+    from realtime_analytics_tpu_torch.types import BatchResult
+
+    _hold(got, BatchResult(boxes_xyxy=b, scores=s, class_ids=c, num_valid=n),
+          box_rtol=0, box_atol=1e-2, score_rtol=0, score_atol=1e-4)
+
+
+def test_sp_mesh_refuses_s2d_and_int8_by_name(tree):
+    """s2d under an sp axis is reached by no JAX entry point, and the int8
+    conv has no banded form: both refused by name (ROADMAP.md "Held")."""
+    kw = dict(host_select="off", batch_buckets=[4], max_batch_size=4)
+    eng = TorchYoloEngine(_cfg(s2d_backbone="on", **kw), params=tree)
+    eng.use_mesh(make_mesh(8, axis_names=AXES_SP, devices=CPU8))
+    with pytest.raises(ValueError, match="s2d_backbone under an sp mesh axis"):
+        eng.predict_arrays(_frames(14, n=4))
+    int8 = TorchYoloEngine(_cfg(precision="int8", **kw), params=tree)
+    with pytest.raises(ValueError, match="int8 weights under an sp mesh axis"):
+        int8.use_mesh(make_mesh(8, axis_names=AXES_SP, devices=CPU8))
