@@ -177,13 +177,25 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
     each shard's trace: B1, B2, B3 (``mma``) and both passes of B6 in every
     shard, B4 in none; its launches a step are over the trace's B2 count,
     which is one a step on this path;
-17. the ``{"kernels": [...]}`` line, the card line, and last
+17. the benchmark entry points ("bench"): the port's
+    ``scripts/bench.py`` in a subprocess, as a user runs it
+    (``RVA_BENCH_BATCHES=16,32``, a 10 s pipeline window at 32 streams, a
+    5 s real-engine window, the temporal, ResNet-18 and ONNX-graph
+    sections on): rc 0, a last line that parses with ``platform: "gpu"``,
+    the card and an ``mfu``, every section in its capture and no error;
+    the bench's selected step, built as the bench builds it, at B1 2, B2 1,
+    B3 1 and B6 1 launches a step; then ``scripts/bench_graph_path.py
+    --buckets 16`` and ``scripts/bench_early_layers.py --batch 32`` with
+    ``--impl plain`` and ``--impl kernel`` (B3 launched once by the kernel
+    segment, never by the plain one); each subprocess's log under
+    ``build/chip_smoke/bench/``;
+18. the ``{"kernels": [...]}`` line, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
-Every path of phases 4-15 runs with the launch counters set to 0 just
-before and read just after; each fails unless the kernels it runs were
-launched (the YOLO v8 steps: ``decode_v8`` exactly once a step; every YOLO
-step: ``nms_keep`` once) and, on the int8, v5, ONNX and artifact paths,
+Every path of phases 4-15 and the bench's step run with the launch
+counters set to 0 just before and read just after; each fails unless the
+kernels it runs were launched (the YOLO v8 steps: ``decode_v8`` exactly
+once a step; every YOLO step: ``nms_keep`` once) and, on the int8, v5, ONNX and artifact paths,
 unless the kernels those paths skip were not. A kernel's ``launches`` in
 the kernels line is its count on one step of the path its row times (the
 main path for B1-B3 and B6, the device-resize step for B4), and
@@ -3271,6 +3283,104 @@ def run_shards(detector: dict, streams, in_process: dict):
                 in_process=in_process), dash
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the benchmark entry points
+# ---------------------------------------------------------------------------
+
+BENCH_ENV = dict(RVA_BENCH_BATCHES="16,32", RVA_BENCH_PIPELINE_SECONDS="10",
+                 RVA_BENCH_REAL_SECONDS="5")
+TEMPORAL_FAMILIES = ("cnn_lstm", "conv_gru", "3d_cnn", "slow_fast")
+GRAPH_FORMATS = ("fp32", "bf16", "int8_qoperator", "qdq_int8_weights_bf16")
+
+
+def run_module(args, log_path: Path, env=None, timeout: float = 600.0):
+    """``python -m <args>`` from the checkout's root, as a user runs it (its
+    own process: this one's global TF32 settings do not reach it); its
+    standard error to ``log_path``; the last line of its standard output
+    parsed as JSON."""
+    with open(log_path, "w") as err:
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=err, text=True,
+                              timeout=timeout)
+    tail = log_path.read_text()[-3000:]
+    assert proc.returncode == 0, f"{args[0]} exited {proc.returncode}:\n{proc.stdout[-2000:]}{tail}"
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def run_bench(frames):
+    """The port's bench as a user runs it (``RVA_BENCH_BATCHES=16,32``, a 10 s
+    pipeline window, a 5 s real-engine window, every section on): rc 0, a
+    last line that parses with ``platform: "gpu"``, every section in the
+    capture and no error; the bench's selected step, built as the bench
+    builds it, launches B1 2, B2 1, B3 1, B6 1 a step (counted here, in
+    this process); then ``bench_graph_path --buckets 16`` and
+    ``bench_early_layers --batch 32`` with ``--impl plain`` and ``kernel``."""
+    from realtime_analytics_tpu_torch.ops import _cuda
+    from realtime_analytics_tpu_torch.scripts import bench
+
+    wdir = ROOT / "build" / "chip_smoke" / "bench"
+    shutil.rmtree(wdir, ignore_errors=True)
+    wdir.mkdir(parents=True)
+    capture = wdir / "capture.json"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RVA_BENCH_")}
+    env.update(BENCH_ENV, RVA_BENCH_CAPTURE=str(capture))
+    t0 = time.perf_counter()
+    line = run_module(["realtime_analytics_tpu_torch.scripts.bench"], wdir / "bench.log", env)
+    bench_s = time.perf_counter() - t0
+    log("bench line " + json.dumps(line))
+    full = json.loads(capture.read_text())
+    assert line["platform"] == full["platform"] == "gpu" and line["card"] == CARD, line
+    assert line["mfu"] is not None and 0 < line["mfu"] < 1, line
+    assert not bench.has_error(full), "a bench section failed: see " + str(capture)
+    rows = full["all_batches"]
+    assert [r["device_batch"] for r in rows] == [16, 32]
+    assert all(r["device_busy_ms"] > 0 and 0 <= r["idle_share"] < 1 for r in rows), rows
+    assert "batch_ms_alt" in rows[0]
+    assert full["pipeline_e2e"]["frames_processed"] > 0 and full["pipeline_e2e"]["n_streams"] == N
+    assert full["real_engine_window"]["frames_processed"] > 0
+    assert [m["model"] for m in full["temporal"]["models"]] == list(TEMPORAL_FAMILIES)
+    assert full["resnet"]["model"] == "resnet18"
+    assert all(f in full["graph_onnx"] for f in GRAPH_FORMATS), full["graph_onnx"]
+
+    # the launches a step of the bench's selected step, read in this process
+    eng = bench.build_engine(bench.manifest_checkpoint(str(wdir / "yolov8n_manifest.npz")),
+                             (N,), "cuda")
+    step, selected = bench.production_step(eng)
+    assert selected
+    host, _ = eng.host_prepare(frames, frames.shape[1:3])
+    with torch.inference_mode():
+        x = torch.from_numpy(host).cuda()
+        step(x)
+        torch.cuda.synchronize()
+        _cuda.LAUNCHES.reset()
+        step(x)
+        torch.cuda.synchronize()
+        launches = _cuda.LAUNCHES.snapshot()
+    log(f"bench step launches {json.dumps(launches)}")
+    require_counts("bench step", launches, dict(row_gather=2, decode_v8=1, fused_stem=1,
+                                                nms_keep=1, letterbox=0))
+    del eng, x
+
+    t1 = time.perf_counter()
+    graph = run_module(["realtime_analytics_tpu_torch.scripts.bench_graph_path",
+                        "--buckets", "16"], wdir / "bench_graph_path.log")
+    log("bench_graph_path " + json.dumps(graph))
+    early = {}
+    for impl in ("plain", "kernel"):
+        early[impl] = run_module(["realtime_analytics_tpu_torch.scripts.bench_early_layers",
+                                  "--batch", str(N), "--impl", impl],
+                                 wdir / f"bench_early_layers_{impl}.log")
+        log(f"bench_early_layers {impl} " + json.dumps(early[impl]))
+    assert graph["native_b16"]["host_select"] and not graph["graph_b16"]["host_select"]
+    assert (early["plain"]["fused_stem_launches"], early["kernel"]["fused_stem_launches"]) \
+        == (0, 1)
+    return launches, dict(
+        summary=line, bench_s=bench_s, scripts_s=time.perf_counter() - t1,
+        all_batches=rows, pipeline_e2e=full["pipeline_e2e"],
+        real_engine_window=full["real_engine_window"],
+        graph_path=graph, early_layers=early)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible — this test runs on the card",
@@ -3393,6 +3503,10 @@ def main() -> int:
     log("dashboard " + json.dumps(dict(dash, card=card)))
     log("shards " + json.dumps(dict(shards, card=card)))
     lap("shards")
+    torch.cuda.empty_cache()
+    paths["bench"], bench_out = run_bench(frames)
+    log("bench " + json.dumps(dict(bench_out, card=card)))
+    lap("bench")
 
     log("launches by path " + json.dumps(paths))
     log("phase wall s " + json.dumps(dict(walls, total_since_start=time.perf_counter() - t0)))
