@@ -55,6 +55,20 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
    reported, fp32 detections held as sets, ``stages_ms.forward`` (median
    of 7, twice each, interleaved), the forward by CUDA events and replayed
    as a CUDA graph (the device's time alone);
+4b. the captured steps ("captured step", ``run_captured``): the YOLO steps
+   captured as CUDA graphs at warmup and replayed (``engine/graphs.py``):
+   the main path at 1080p with the host pick at buckets 4, 32 and 128, the
+   device-resize step at 720p, int8 and the tiled path at bucket 32, and
+   the exported main-path ``.rvae``; each held bit-equal to the same
+   engine's eager step (boxes, scores, classes, num_valid), with the same
+   launches; the profiler's host calls a call (one ``cudaGraphLaunch`` a
+   step and no call that may wait inside the replay); the call's time on
+   the host clock (median of 20) and by CUDA events on input already on
+   the card, captured against eager; the warmup's bucket costs, captured
+   and eager; capture seconds a key and the MiB of the engine's graph
+   pool. Every later phase serves captured steps through warmup or a
+   first call; the eager step is reached directly only where a phase
+   compares it;
 5. the YOLO device-resize step: the same engine with ``host_resize: off``
    on 32 synthetic 1280x720 frames (full frames -> B4 letterbox -> forward),
    held against ``pallas_preprocess: off``;
@@ -209,6 +223,7 @@ from __future__ import annotations
 import ast
 import asyncio
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -1094,6 +1109,192 @@ def fused_vs_unfused(eng, params, frames, res, launches):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the captured steps
+# ---------------------------------------------------------------------------
+
+CAPTURED_BUCKETS = (4, 32, 128)  # the main path's buckets held captured against eager
+
+
+def eager_twin(eng):
+    """A shallow copy of ``eng`` that serves from a cache of eager steps of
+    its own, over ``eng``'s model, weights and prepared state: what a
+    captured step is held to."""
+    from realtime_analytics_tpu_torch.engine.graphs import StepCache
+
+    twin = copy.copy(eng)
+    twin._steps, twin._bucket_cost_ms = StepCache(), {}
+    twin._captures = lambda: False
+    return twin
+
+
+def bucket_run(eng, frames, bucket):
+    """``eng``'s step of ``bucket`` on ``frames`` (host-prepared, padded), as
+    ``predict_arrays`` runs it once it has chosen the bucket: its four
+    padded outputs as arrays."""
+    src_hw = tuple(frames.shape[1:3])
+    host, selected = eng.host_prepare(frames, src_hw)
+    res = eng._run_bucket(bucket, host, src_hw, selected)
+    return [res.boxes_xyxy, res.scores, res.class_ids, res.num_valid]
+
+
+def detections_run(eng, packets):
+    """``predict_packets`` (the tiled path) as arrays: each frame's
+    detections as (class, confidence, box) rows in their order."""
+    dets = eng.predict_packets(packets)
+    return [np.array([[d.class_id, d.confidence, *d.bbox_xyxy] for d in f], np.float64)
+            for f in dets]
+
+
+def captured_case(name, eng, src_hw, run, steps_per_call, device_fns=None):
+    """One case of the captured-step phase: ``eng`` warmed (every bucket
+    captured), then held against its eager twin on ``run(engine)``:
+    results bit-equal, launches equal; the warmup's bucket costs, which
+    bucket selection compares, captured and eager; the profiler's host calls a call
+    (``steps_per_call`` graph launches, and inside each replay one
+    ``cudaGraphLaunch`` and no call that may wait: no synchronize, no
+    copy), the call's host-clock time
+    (median of 20, the two interleaved) and, for ``device_fns`` ((captured
+    step, eager step) on input already on the card), its CUDA-event time;
+    capture seconds a key and the MiB the engine's graphs hold."""
+    from realtime_analytics_tpu_torch.engine.graphs import CapturedStep
+    from realtime_analytics_tpu_torch.ops import _cuda
+    from realtime_analytics_tpu_torch.scripts.profile_step import SYNC_CALLS, trace
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    eng.warmup(src_hw)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    captured = {str(k): s for k, s in eng._steps.items()}
+    assert captured and all(isinstance(s, CapturedStep) for s in captured.values()), \
+        f"{name}: a step of the card's engine is not captured: {captured}"
+    torch.cuda.empty_cache()
+    graph_mib = eng._steps.pool_mib()
+    reserved_mib = (torch.cuda.memory_reserved() - reserved0) / 2**20
+    twin = eager_twin(eng)
+    twin.warmup(src_hw)  # the eager steps' first calls, and their costs
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.reset()
+    got = run(eng)
+    launches = _cuda.LAUNCHES.snapshot()
+    _cuda.LAUNCHES.reset()
+    want = run(twin)
+    eager_launches = _cuda.LAUNCHES.snapshot()
+    equal = len(got) == len(want) and all(
+        a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a, b)
+        for a, b in zip(got, want))
+    tr = trace(eng, None, 3, predict=lambda _: run(eng))
+    etr = trace(twin, None, 3, predict=lambda _: run(twin))
+    host = {"captured": [], "eager": []}
+    for label, e in (("captured", eng), ("eager", twin), ("eager", twin), ("captured", eng)):
+        for _ in range(10):
+            t1 = time.perf_counter()
+            run(e)
+            host[label].append((time.perf_counter() - t1) * 1e3)
+    out = dict(
+        src=list(src_hw), keys=list(captured), warmup_s=warmup_s,
+        capture_s={k: st.capture_s for k, st in captured.items()},
+        bucket_cost_ms={str(k): v for k, v in eng._bucket_cost_ms.items()},
+        eager_bucket_cost_ms={str(k): v for k, v in twin._bucket_cost_ms.items()},
+        graph_pool_mib=graph_mib, reserved_mib_after_warmup=reserved_mib,
+        bit_equal=equal, launches=launches, eager_launches=eager_launches,
+        graph_launches_per_call=tr["graph_launches_per_step"],
+        runtime_calls_in_replay_per_call=tr["runtime_calls_in_replay_per_step"],
+        host_waits_per_call=tr["host_waits_per_step"],
+        eager_host_waits_per_call=etr["host_waits_per_step"],
+        kernels_per_call=tr["kernels_per_step"], eager_kernels_per_call=etr["kernels_per_step"],
+        device_busy_ms_per_call=tr["device_ms_per_step"],
+        idle_share=tr["device_idle_share"], eager_idle_share=etr["device_idle_share"],
+        host_ms_median=statistics.median(host["captured"]),
+        eager_host_ms_median=statistics.median(host["eager"]))
+    if device_fns is not None:
+        with torch.inference_mode():
+            out["events_ms"] = cuda_ms(device_fns[0], iters=20)
+            out["eager_events_ms"] = cuda_ms(device_fns[1], iters=20)
+            out["events_ms_again"] = cuda_ms(device_fns[0], iters=20)
+    log(f"captured step {name}: " + json.dumps(dict(out, card=CARD)))
+    assert equal, f"{name}: the captured step's results differ from the eager step's"
+    assert launches == eager_launches, f"{name}: launches {launches} != eager {eager_launches}"
+    in_replay = tr["runtime_calls_in_replay_per_step"]
+    assert tr["graph_launches_per_step"] == in_replay.get("cudaGraphLaunch") == steps_per_call, \
+        f"{name}: not one graph launch a step: {tr['graph_launches_per_step']}, {in_replay}"
+    waits = {k: v for k, v in in_replay.items() if k in SYNC_CALLS}
+    assert not waits, f"{name}: the replay waits on the host: {waits}"
+    return launches, out
+
+
+def run_captured(params, frames, frames720):
+    """The YOLO steps captured as CUDA graphs at warmup and replayed
+    (``engine/graphs.py``), each held bit-equal to the same engine's eager
+    step: the main path at 1080p with the host pick at buckets 4, 32 and
+    128; the device-resize step at 720p, bucket 32; int8 at 32; the tiled
+    path (8 x 1080p: two tile steps and the whole-frame step); the exported
+    main-path ``.rvae``."""
+    from realtime_analytics_tpu_torch.config import StreamConfig
+    from realtime_analytics_tpu_torch.engine.detector import TorchYoloEngine, create_detector
+    from realtime_analytics_tpu_torch.engine.export import export_serving_artifact
+    from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
+    from realtime_analytics_tpu_torch.types import FramePacket
+
+    paths, out = {}, {}
+    big = np.concatenate([frames] * (max(CAPTURED_BUCKETS) // N))
+    src = tuple(frames.shape[1:3])
+    eng = TorchYoloEngine(detector_config(batch_buckets=list(CAPTURED_BUCKETS),
+                                          max_batch_size=max(CAPTURED_BUCKETS)), params=params)
+    spec = letterbox_spec(src, eng.input_hw)
+    for b in CAPTURED_BUCKETS:
+        x = torch.from_numpy(eng.host_prepare(big[:b], src)[0]).cuda()
+        paths[f"captured_main_b{b}"], out[f"main_b{b}"] = captured_case(
+            f"main b{b}", eng, src, lambda e, b=b: bucket_run(e, big[:b], b), 1,
+            device_fns=(lambda x=x, b=b: eng._get_step_selected(b, src)(x),
+                        lambda x=x: eng._step_selected(x, spec)))
+        del x
+    del eng
+    torch.cuda.empty_cache()
+    cases = {
+        "device_resize": (dict(host_resize="off"), frames720),
+        "int8": (dict(precision="int8"), frames),
+    }
+    for name, (over, fr) in cases.items():
+        eng = TorchYoloEngine(detector_config(**over), params=params)
+        hw = tuple(fr.shape[1:3])
+        sp = letterbox_spec(hw, eng.input_hw)
+        host, selected = eng.host_prepare(fr, hw)
+        x = torch.from_numpy(host).cuda()
+        get = eng._get_step_selected if selected else eng._get_step
+        fn = eng._step_selected if selected else eng._step_device_resize
+        paths[f"captured_{name}"], out[name] = captured_case(
+            name, eng, hw, lambda e, fr=fr: bucket_run(e, fr, N), 1,
+            device_fns=(lambda: get(N, hw)(x), lambda: fn(x, sp)))
+        del eng, x
+        torch.cuda.empty_cache()
+    packets = [FramePacket(StreamConfig(name=f"cam-{i}", url="synthetic://"), f, i, 0.0)
+               for i, f in enumerate(frames[:8])]
+    eng = TorchYoloEngine(detector_config(tiling=True, tiling_full_frame=True), params=params)
+    paths["captured_tiled"], out["tiled"] = captured_case(
+        "tiled", eng, src, lambda e: detections_run(e, packets), 3)
+    del eng
+    live = TorchYoloEngine(detector_config(), params=params)
+    wdir = ROOT / "build" / "chip_smoke"
+    wdir.mkdir(parents=True, exist_ok=True)
+    rvae = str(wdir / "captured_main.rvae")
+    live.warmup(src)
+    export_serving_artifact(live, rvae, [src])
+    del live
+    eng = create_detector(detector_config(model_path=rvae))
+    host = torch.from_numpy(eng.host_prepare(frames, src)[0]).cuda()
+    paths["captured_rvae_main"], out["rvae_main"] = captured_case(
+        "rvae main", eng, src, lambda e: bucket_run(e, frames, N), 1,
+        device_fns=(lambda: eng._get_step_selected(N, src)(host),
+                    lambda: eng._step_selected(host, spec)))
+    del eng, host
+    torch.cuda.empty_cache()
+    return paths, out
+
+
+# ---------------------------------------------------------------------------
 # phases 6-8: native int8, YOLOv5, tiled inference
 # ---------------------------------------------------------------------------
 
@@ -1102,12 +1303,18 @@ def host_waits(eng, frames):
     """A main step with NMS's keep pass three ways: the fixpoint sweeps (a
     host wait a sweep), the overlap build and B6 on the matrix
     (``nms_keep``: the path before B6 took the boxes), and B6 on the boxes.
-    For each, ``profile_step.py``'s trace over 2 steps (host calls that wait
-    for the card, kernels and device ms a step) and its select + NMS stage
-    (host clock, synchronised, median of 10); B6 on the boxes is read again
-    last, so that a drift of the host shows."""
+    For each, ``profile_step.py``'s trace over 2 eager steps (host calls
+    that wait for the card, kernels and device ms a step: the swapped
+    function does not reach a captured graph, and the sweeps could not be
+    captured) and its select + NMS stage (host clock, synchronised, median
+    of 10); B6 on the boxes is read again last, so that a drift of the host
+    shows."""
     from realtime_analytics_tpu_torch.ops import nms
-    from realtime_analytics_tpu_torch.scripts.profile_step import stage_times, trace
+    from realtime_analytics_tpu_torch.scripts.profile_step import (
+        eager_predict,
+        stage_times,
+        trace,
+    )
 
     kernel = nms.nms_keep_boxes
     variants = dict(
@@ -1117,7 +1324,7 @@ def host_waits(eng, frames):
     try:
         for name, fn in variants.items():
             nms.nms_keep_boxes = fn
-            tr = trace(eng, frames, 2)
+            tr = trace(eng, frames, 2, predict=lambda f: eager_predict(eng, f))
             out[name] = dict(
                 host_waits=tr["host_waits_per_step"],
                 host_waits_total=sum(tr["host_waits_per_step"].values()),
@@ -1302,6 +1509,7 @@ def run_yolov5(frames):
     # NMS gathering through the kernel and then through torch
     on = fp32.predict_arrays(frames)
     fp32._nms_gather = "torch"
+    fp32._steps.clear()  # the captured step keeps the gather it was captured with
     off = fp32.predict_arrays(frames)
     assert (on.num_valid > 0).all()
     _, score_g, box_g = hold("yolov5 fp32 detections, B1 on vs off", on, off,
@@ -3188,6 +3396,8 @@ def drive_shards(k: int, window: float, detector: dict, streams, traced=False,
     counts the port's kernels in each shard's trace."""
     import yaml
 
+    from realtime_analytics_tpu_torch.engine.graphs import WARM_RUNS
+
     wdir = ROOT / "build" / "chip_smoke" / f"shards_k{k}{'_traced' if traced else ''}"
     shutil.rmtree(wdir, ignore_errors=True)
     wdir.mkdir(parents=True)
@@ -3245,7 +3455,9 @@ def drive_shards(k: int, window: float, detector: dict, streams, traced=False,
         shard = dict(index=i, streams=share, batches=stats.get("batches"),
                      avg_batch=stats.get("avg_batch_size"),
                      avg_infer_ms=stats.get("avg_infer_ms"), shed=stats.get("shed"),
-                     warmup_steps=4 * shard_log.count("warmup: bucket"))
+                     # a bucket's warmup: the warm runs of its capture, then
+                     # four replays (the first call and three timed)
+                     warmup_steps=(WARM_RUNS + 4) * shard_log.count("warmup: bucket"))
         if traced:
             launches = trace_kernels(wdir / "trace" / f"shard{i}")
             for name in SHARD_KERNELS:
@@ -3436,6 +3648,10 @@ def main() -> int:
     paths["main"], engine, bf16_res = run_engine(params, frames)
     log("engine " + json.dumps(dict(engine, card=card)))
     lap("main")
+    captured_paths, captured = run_captured(params, frames, frames720)
+    paths.update(captured_paths)
+    log("captured step " + json.dumps(dict(captured, card=card)))
+    lap("captured")
     paths["device_resize"], resize = run_device_resize(params, frames720)
     log("device_resize " + json.dumps(dict(resize, card=card)))
     lap("device_resize")

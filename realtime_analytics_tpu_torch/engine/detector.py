@@ -46,15 +46,20 @@ graph; an end-to-end export (NMS inside the graph) takes a confidence
 top-k instead of the engine's NMS. The ResNet engine (and the temporal
 one) serve a classifier (clip) graph in their usual steps.
 
-PyTorch runs eagerly, so a "step" is a closure over the static letterbox
-geometry, not a compiled program. Batches are still padded to the
-configured buckets, so every call sees one of a few fixed shapes, and the
-step has no host wait that depends on the data (NMS's keep pass is kernel
-B6 on the card: a main step's waits went from 44 to 16, the uploads, the
-copies back and the allocator's), so ``engine/export.py`` traces it into
-one ``torch.export`` program per shape. What a step reads besides the
-model's weights, prepared once, is the engine's ``prepared_state``; the
-exporter traces the step of a copy ``bind``-ed to a program's inputs.
+A step is prepared once per key and reused, as the JAX engine's ``_steps``
+holds one ``jax.jit`` program per (batch bucket x source resolution):
+``_get_step_selected`` and ``_get_step`` fill ``_steps`` under JAX's keys,
+``(B, H, W, "sel")`` and ``(B, H, W)``, at the key's first use (``warmup``
+runs every bucket it times). On the card the entry is the eager step
+(``_step_selected`` / ``_step_device_resize``, a closure over the static
+letterbox geometry) captured as a CUDA graph and replayed from then on
+(``engine/graphs.py``); on the CPU, under a mesh and on a graph-backed
+engine it is the eager step itself. The step holds no host wait (NMS's
+keep pass is kernel B6 on the card; the un-letterbox takes its geometry
+as numbers), so ``engine/export.py`` also traces it into one
+``torch.export`` program per shape. What a step reads besides the model's
+weights, prepared once, is the engine's ``prepared_state``; the exporter
+traces the step of a copy ``bind``-ed to a program's inputs.
 
 Device rules: ``device: auto | cuda | cuda:N`` means the card and RAISES
 when none is visible; only ``device: cpu`` runs on the CPU. On the card the
@@ -67,8 +72,10 @@ TF32 off for cuDNN convolutions and for matmuls (cuDNN defaults to TF32).
 ``half: true`` or ``precision: bf16`` means bf16, as in the JAX package.
 
 Concurrency: the batcher runs up to ``pipeline_depth`` ``predict_packets``
-calls at once in worker threads. Each call allocates its own device
-tensors; the only shared device state is read-only weights.
+calls at once in worker threads. A captured step's replays (input copied
+in, graph launched, outputs copied out) take the engine's step lock; an
+eager step allocates its own device tensors each call and shares only
+read-only weights.
 """
 
 from __future__ import annotations
@@ -118,6 +125,7 @@ from ..ops.preprocess import (
 from ..ops.tiling import crop_tile, merge_frame, tile_grid
 from ..parallel.mesh import ShardedModel, make_mesh
 from ..types import BatchResult, Detection, FramePacket
+from .graphs import CapturedStep, EagerStep, StepCache
 
 logger = logging.getLogger(__name__)
 
@@ -397,6 +405,7 @@ class TorchYoloEngine(PreparedState, BaseDetector):
             mask = torch.zeros(config.num_classes, dtype=torch.bool)
             mask[torch.as_tensor(config.classes, dtype=torch.long)] = True
             self._class_mask = mask.to(self.device)
+        self._steps = StepCache()  # (B, H, W[, "sel"]) -> the prepared step
         self._bucket_cost_ms: Dict[Tuple[int, int], Dict[int, float]] = {}
         self.class_agnostic_nms = True  # reference NMS is class-agnostic
         self.last_infer_ms: float = 0.0
@@ -488,6 +497,15 @@ class TorchYoloEngine(PreparedState, BaseDetector):
             self._s2d_w0_folded = (state["s2d_w0_folded"]["w"], *self._s2d_w0_folded[1:])
         if self._class_mask is not None:
             self._class_mask = state["class_mask"]
+
+    def bind(self, model, state: Dict):
+        bound = super().bind(model, state)
+        bound._steps = StepCache()  # its steps read the bound tensors
+        return bound
+
+    def use_mesh(self, mesh) -> None:
+        super().use_mesh(mesh)
+        self._steps = StepCache()  # the steps prepared off the mesh go
 
     # -- host side ------------------------------------------------------
 
@@ -654,6 +672,41 @@ class TorchYoloEngine(PreparedState, BaseDetector):
                               spec.src_h, spec.src_w)
         return b, s, c, n
 
+    # -- the step cache ---------------------------------------------------
+
+    def _captures(self) -> bool:
+        """Whether this engine captures its steps: on the card, off a mesh
+        (multi-device capture is not done yet) and for a native YOLO model
+        (a graph-backed model's interpreter is not yet held capture-safe)."""
+        return self.device.type == "cuda" and self.mesh is None and not self._graph_backed
+
+    def _get_step_selected(self, batch: int, src_hw: Tuple[int, int]):
+        return self._cached_step((batch, *src_hw, "sel"), batch, src_hw, True)
+
+    def _get_step(self, batch: int, src_hw: Tuple[int, int]):
+        return self._cached_step((batch, *src_hw), batch, src_hw, False)
+
+    def _cached_step(self, key, batch: int, src_hw: Tuple[int, int], selected: bool):
+        return self._steps.setdefault_made(
+            key, lambda: self._make_step(key, batch, src_hw, selected))
+
+    def _make_step(self, key, batch: int, src_hw: Tuple[int, int], selected: bool):
+        """The step of ``key``: the eager step over the static geometry,
+        captured on the card (a failed capture raises, naming the key)."""
+        spec = letterbox_spec(src_hw, self.input_hw)
+        method = self._step_selected if selected else self._step_device_resize
+        fn = lambda x: method(x, spec)  # noqa: E731
+        if not self._captures():
+            return EagerStep(fn, self.device)
+        logger.info("capturing fused detect step%s for batch=%d src=%s",
+                    " (host-select)" if selected else "", batch, tuple(src_hw))
+        hw = (spec.new_h, spec.new_w) if selected else (spec.src_h, spec.src_w)
+        step = CapturedStep(fn, (batch, *hw, 3), torch.uint8, self.device, key=key,
+                            cache=self._steps)
+        logger.info("captured step %s in %.2fs: launches a replay %s", key, step.capture_s,
+                    step.launches)
+        return step
+
     # -- buckets ----------------------------------------------------------
 
     def _effective_bucket(self, n: int, src_hw: Tuple[int, int]) -> int:
@@ -666,11 +719,13 @@ class TorchYoloEngine(PreparedState, BaseDetector):
         ))
 
     def warmup(self, src_hw: Tuple[int, int], buckets: Optional[Sequence[int]] = None):
-        """Run every bucket once to settle allocations, cuDNN algorithm
-        choice and the first-use kernel build, then time it (min of 3) for
-        cost-aware bucket selection. Under a mesh each bucket runs rounded
-        to dp, the step ``predict_arrays`` then runs; its cost is recorded
-        under the bucket before rounding, the key selection compares."""
+        """Prepare every bucket's step (on the card: warm it, which settles
+        allocations, cuDNN algorithm choice and the first-use kernel build,
+        and capture it), then time it (min of 3) for cost-aware bucket
+        selection, so that selection compares the steps that serve. Under a
+        mesh each bucket runs rounded to dp, the step ``predict_arrays``
+        then runs; its cost is recorded under the bucket before rounding,
+        the key selection compares."""
         buckets = buckets or self.config.resolved_buckets
         _, selected = self.host_prepare(np.zeros((1, *src_hw, 3), np.uint8), src_hw)
         costs = self._bucket_cost_ms.setdefault(tuple(src_hw), {})
@@ -712,17 +767,17 @@ class TorchYoloEngine(PreparedState, BaseDetector):
 
     def _run_bucket(self, bucket: int, frames: np.ndarray,
                     src_hw: Tuple[int, int], selected: bool) -> BatchResult:
-        """Pad to exactly ``bucket`` and run the step (warmup uses this
-        directly to time a specific bucket)."""
+        """Pad to exactly ``bucket`` and run its cached step: the batch
+        copied in, the padded results copied out (warmup uses this directly
+        to prepare and time a specific bucket)."""
         n = frames.shape[0]
         if n < bucket:
             pad = np.zeros((bucket - n, *frames.shape[1:]), dtype=frames.dtype)
             frames = np.concatenate([frames, pad], axis=0)
-        spec = letterbox_spec(src_hw, self.input_hw)
+        step = (self._get_step_selected(bucket, src_hw) if selected
+                else self._get_step(bucket, src_hw))
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            step = self._step_selected if selected else self._step_device_resize
-            b, s, c, nv = (t.cpu().numpy() for t in self._mesh_call(step, frames, spec))
+        b, s, c, nv = step.run_host(frames)
         self.last_infer_ms = (time.perf_counter() - t0) * 1e3
         return BatchResult(
             boxes_xyxy=b[:n], scores=s[:n], class_ids=c[:n], num_valid=nv[:n],

@@ -102,6 +102,7 @@ from .detector import (
     pick_device,
     to_graph_device,
 )
+from .graphs import StepCache
 from .temporal import TorchTemporalEngine
 
 logger = logging.getLogger(__name__)
@@ -552,7 +553,9 @@ class _ArtifactMixin:
                               "with at least one source resolution")
         self.meta = meta
         self._programs = {(p["src_h"], p["src_w"], p["batch"], p["kind"]): p for p in rows}
-        self._steps: Dict[str, Tuple[Callable, Dict[str, torch.Tensor]]] = {}
+        # loaded programs by name, each with its inputs; the YOLO engine's
+        # _steps holds the runnable step of each key, as the live engine's
+        self._loaded_programs: Dict[str, Tuple[Callable, Dict[str, torch.Tensor]]] = {}
         self.input_hw = (int(meta["input_size"][0]), int(meta["input_size"][1]))
         self._graph_backed = bool(meta.get("graph_backed", False))
         if list(config.resolved_input_size) != list(self.input_hw):
@@ -613,7 +616,7 @@ class _ArtifactMixin:
         if key not in self._programs:
             raise ConfigError(self._missing(src_hw, batch, kind))
         entry = self._programs[key]
-        hit = self._steps.get(entry["name"])
+        hit = self._loaded_programs.get(entry["name"])
         if hit is None:
             with zipfile.ZipFile(self.config.model_path) as zf:
                 data = zf.read(entry.get("file", f"programs/{entry['name']}.pt2"))
@@ -624,7 +627,7 @@ class _ArtifactMixin:
             # key's shape: the per-call check of ~250 inputs (host time the
             # host-bound steps pay in full) is not repeated
             program.validate_inputs = False
-            self._steps[entry["name"]] = (program, inputs)
+            self._loaded_programs[entry["name"]] = (program, inputs)
             return out
         program, inputs = hit
         return program(inputs, x)
@@ -656,11 +659,16 @@ class ExportedYoloEngine(_ArtifactMixin, TorchYoloEngine):
     pick, host resize, grouping, bucket choice, tiling merge) is
     ``TorchYoloEngine``'s; the device step is the artifact's program. Only
     the exported (resolution x bucket) programs can run — another shape
-    raises with the list of those exported (a TensorRT engine's contract)."""
+    raises with the list of those exported (a TensorRT engine's contract).
+    The steps are cached as the live engine's, under its keys: on the card
+    the loaded program captured as a CUDA graph after its first, checked
+    call (``engine/graphs.py``), as the JAX exported engine keeps
+    ``jax.jit(exported.call)`` in ``_steps``."""
 
     def __init__(self, config: DetectorConfig):
         config.validate()
         self._init_artifact(config, "yolo")
+        self._steps = StepCache()
         self.class_agnostic_nms = True  # the tiling merge's, as the live engine's
 
     def _step_selected(self, sel_u8: torch.Tensor, spec):

@@ -13,6 +13,15 @@ returns ``cudaGetLastError()``; a wrapper raises (``fail``) on a non-zero
 code. There is no fallback: a CUDA tensor either launches its kernel or
 raises.
 
+Each C entry is safe inside a CUDA graph capture (``engine/graphs.py``):
+it launches on the current stream (the capture's during a capture), its
+launch arguments are copied into the graph by value, and it waits on
+nothing. What happens once (the ``nvcc`` build, the library load, the
+shared-memory limit that B3's and B6's entries raise once per device)
+happens in the eager warm runs before a capture. B4's entry raises its
+kernel's limit at each launch that stages more than 48 KB; that is no
+stream operation, and the device-resize step captures with it.
+
 The launch path is kept short, because the small kernels cost the host
 more than the card: a wrapper binds its C entry once (``entry``) and calls
 the bound function, takes the raw stream as an int (``stream_of``), and
@@ -102,14 +111,21 @@ class LaunchCounter:
         self._tables: List[Dict[str, int]] = []
         self._base: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
-    def add(self, name: str) -> None:
+    def add(self, name: str, n: int = 1) -> None:
+        """Count ``n`` launches of ``name`` on this thread (a replayed CUDA
+        graph adds the launches its capture recorded: ``engine/graphs.py``)."""
         try:
-            self._local.counts[name] += 1
+            self._local.counts[name] += n
         except AttributeError:  # this thread's first launch
             counts = self._local.counts = dict.fromkeys(KERNELS, 0)
             with self._lock:
                 self._tables.append(counts)
-            counts[name] += 1
+            counts[name] += n
+
+    def local(self) -> Dict[str, int]:
+        """A copy of this thread's counts since it first counted."""
+        counts = getattr(self._local, "counts", None)
+        return dict(counts) if counts is not None else dict.fromkeys(KERNELS, 0)
 
     def _sums(self) -> Dict[str, int]:
         return {k: sum(t[k] for t in self._tables) for k in KERNELS}

@@ -36,13 +36,11 @@ def unletterbox_boxes(
     orig_w: int,
 ) -> torch.Tensor:
     """Map xyxy boxes [..., D, 4] from letterboxed input pixels back to
-    original-frame pixels and clip to the frame (static geometry: the
-    engine compiles one step per source resolution)."""
-    pad = torch.tensor(
-        [pad_left, pad_top, pad_left, pad_top], dtype=boxes.dtype,
-        device=boxes.device,
-    )
-    out = (boxes - pad) / torch.tensor(scale, dtype=boxes.dtype)
-    x = out[..., 0::2].clamp(0.0, orig_w - 1.0)
-    y = out[..., 1::2].clamp(0.0, orig_h - 1.0)
+    original-frame pixels and clip to the frame. The geometry is static (the
+    engine prepares one step per source resolution: ``engine/graphs.py``)
+    and enters as Python numbers, so no host tensor is copied to the card
+    and a captured step holds no host wait. fp32 boxes give the JAX
+    version's bits: the same subtraction, division and clip, in its order."""
+    x = ((boxes[..., 0::2] - pad_left) / float(scale)).clamp(0.0, orig_w - 1.0)
+    y = ((boxes[..., 1::2] - pad_top) / float(scale)).clamp(0.0, orig_h - 1.0)
     return torch.stack([x[..., 0], y[..., 0], x[..., 1], y[..., 1]], dim=-1)

@@ -10,23 +10,29 @@ Section 1, device throughput (the headline number). The production step
 over host-picked input: 32 x 1080p uint8 BGR frames, picked 3x on the host
 (``native.pick_u8``) to [N, 360, 640, 3], uploaded once; then on the card
 pad + cast, the YOLOv8n forward (bf16, the stem-folded weights, kernels B3
-and B2), batched NMS (B1 twice, B6) and un-letterbox
-(``TorchYoloEngine._step_selected``), at buckets 4, 16, 32, 64 and 128.
-JAX strips dispatch by looping the step K times inside one ``jit``. PyTorch
-runs eagerly, so here K calls run back to back with no host wait between
-them: one byte of the input is set on the card before each call
-(``x[0, 0, 0, 0] = i % 251``), every output is summed into one device
-accumulator, and one read of the accumulator ends the run; best of 3 runs.
-``(t_21 - t_1) / 20`` is the marginal batch time, ``t_1`` the time of one
-call (``seq_ms_per_batch``); method B, ``(t_41 - t_21) / 20`` at buckets 16
-and 128, cross-checks it (``methods_agree_pct``). The eager step waits for
-the host, so the differential measures the larger of the host's and the
-card's time a step; each bucket's row also carries ``device_busy_ms`` (per
-step) and ``idle_share`` from a ``torch.profiler`` window of 5 steps
-(overlaps merged), which say which of the two sets the pace, the
-kernels and host waits a step (a wait in the step stops the calls from
-queueing ahead), and the lines at which torch's sync debug mode flags a
-synchronizing operation in one step (``sync_sites``).
+and B2), batched NMS (B1 twice, B6) and un-letterbox, at buckets 4, 16, 32,
+64 and 128. The step timed is the one serving runs: the engine's cached
+step of the bucket (``TorchYoloEngine._get_step_selected``), on the card
+``TorchYoloEngine._step_selected`` captured as a CUDA graph
+(``engine/graphs.py``): the batch copied into its static input, one graph
+replay, the outputs cloned. On the card the eager step (``_step_selected``
+called directly) is timed beside it under ``eager_*`` names.
+JAX strips dispatch by looping the step K times inside one ``jit``. Here K
+calls run back to back with no host wait between them: one byte of the
+input is set on the card before each call (``x[0, 0, 0, 0].fill_(i %
+251)``, a kernel: an item assignment copies the number from the host and
+waits), every output is summed into one device accumulator, and one read of the
+accumulator ends the run; best of 3 runs. ``(t_21 - t_1) / 20`` is the
+marginal batch time, ``t_1`` the time of one call (``seq_ms_per_batch``);
+method B, ``(t_41 - t_21) / 20`` at buckets 16 and 128, cross-checks it
+(``methods_agree_pct``). The differential measures the larger of the
+host's and the card's time a step; each bucket's row also carries
+``device_busy_ms`` (per step) and ``idle_share`` from a ``torch.profiler``
+window of 5 steps (overlaps merged), which say which of the two sets the
+pace, the kernels, graph launches and host waits a step (a wait in the
+step stops the calls from queueing ahead), and the lines at which torch's
+sync debug mode flags a synchronizing operation in one step
+(``sync_sites``).
 
 FLOPs and MFU. The port has no compiler cost analysis: ``flops_per_batch``
 is the model's own work, counted by ``torch.utils.flop_counter`` over the
@@ -202,14 +208,22 @@ def build_engine(model_path: str, batches: Sequence[int], device: str,
 
 def production_step(engine, src_hw: Tuple[int, int] = SRC_HW):
     """(step(x) -> (boxes, scores, classes, num_valid), selected): the
-    engine's step for frames of ``src_hw`` as ``predict_arrays`` runs it,
-    the selected step over host-picked input when the pick applies."""
+    engine's cached step for frames of ``src_hw`` and x's batch, the one
+    ``predict_arrays`` runs (on the card a replayed CUDA graph), the
+    selected step over host-picked input when the pick applies."""
+    _, selected = engine.host_prepare(np.zeros((1, *src_hw, 3), np.uint8), src_hw)
+    get = engine._get_step_selected if selected else engine._get_step
+    return (lambda x: get(int(x.shape[0]), src_hw)(x)), selected
+
+
+def eager_step(engine, src_hw: Tuple[int, int] = SRC_HW):
+    """The same step called eagerly, as the cached step was made from."""
     from ..ops.preprocess import letterbox_spec
 
     _, selected = engine.host_prepare(np.zeros((1, *src_hw, 3), np.uint8), src_hw)
     spec = letterbox_spec(src_hw, engine.input_hw)
     fn = engine._step_selected if selected else engine._step_device_resize
-    return (lambda x: fn(x, spec)), selected
+    return lambda x: fn(x, spec)
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +246,7 @@ def k_call_runner(step: Callable, x: torch.Tensor) -> Callable[[int], float]:
     def run(k: int) -> float:
         acc = torch.zeros((), dtype=torch.float64, device=x.device)
         for i in range(k):
-            x[first] = i % 251
+            x[first].fill_(i % 251)
             acc += _consume(step(x))
         return float(acc)
 
@@ -287,8 +301,11 @@ def device_window(run: Callable[[int], float], steps: int = PROFILE_STEPS) -> Di
     busy = _merged_span((e.time_range.start, e.time_range.end) for e in dev)
     waits = Counter(e.name for e in events
                     if e.device_type == DeviceType.CPU and e.name in SYNC_CALLS)
+    graphs = sum(e.device_type == DeviceType.CPU and e.name == "cudaGraphLaunch"
+                 for e in events)
     return {"device_busy_ms": busy / 1e3 / steps, "idle_share": 1.0 - busy / window,
             "kernels_per_step": len(dev) / steps,
+            "graph_launches_per_step": graphs / steps,
             "host_waits_per_step": sum(waits.values()) / steps,
             "host_waits_by_call": {k: v / steps for k, v in sorted(waits.items())},
             "profiled_steps": steps}
@@ -315,39 +332,45 @@ def step_sync_sites(step: Callable, x: torch.Tensor) -> Dict[str, int]:
 
 
 def bench_device_throughput(engine, settings: Settings) -> Tuple[List[Dict], int]:
-    """The differential of the production step at every bucket. Returns
-    (rows, bytes uploaded a frame)."""
-    step, _ = production_step(engine)
+    """The differential of the production step at every bucket, then, where
+    the engine captures its steps (on the card), of the eager step on the
+    same input (``eager_*``; on the CPU the cached step is the eager step).
+    Returns (rows, bytes uploaded a frame)."""
+    steps = {"": production_step(engine)[0]}
+    if engine._captures():
+        steps["eager_"] = eager_step(engine)
     probe, _ = engine.host_prepare(np.zeros((1, *SRC_HW, 3), np.uint8), SRC_HW)
     rng = np.random.default_rng(0)
     results = []
     for batch in settings.batches:
         host, _ = engine.host_prepare(
             rng.integers(0, 256, (batch, *SRC_HW, 3), dtype=np.uint8), SRC_HW)
+        row: Dict = {"device_batch": batch}
         with torch.inference_mode():
             x = torch.from_numpy(host).to(engine.device)
-            run = k_call_runner(step, x)
-            run(1)  # first use: kernel build, allocator, cuDNN plans
-            run(K_ITERS)
-            t1, tk = best_of(run, 1), best_of(run, K_ITERS)
-            batch_ms = (tk - t1) / (K_ITERS - 1) * 1e3
-            row = {
-                "device_batch": batch,
-                "batch_ms": batch_ms,
-                "agg_fps": batch / batch_ms * 1e3,
-                "dispatch_overhead_ms": t1 * 1e3 - batch_ms,
-                "seq_ms_per_batch": t1 * 1e3,
-            }
-            if batch in settings.crosscheck:
-                tc = best_of(run, K_CHECK)
-                alt_ms = (tc - tk) / (K_CHECK - K_ITERS) * 1e3
-                row["batch_ms_alt"] = alt_ms
-                row["methods_agree_pct"] = round(abs(alt_ms - batch_ms) / batch_ms * 100.0, 1)
-            if engine.device.type == "cuda":
-                row.update(device_window(run))
-                row["sync_sites"] = step_sync_sites(step, x)
-        log(f"section 1: bucket {batch}: {batch_ms:.3f} ms a batch, "
-            f"{row['agg_fps']:.1f} frames/s")
+            for prefix, step in steps.items():
+                run = k_call_runner(step, x)
+                run(1)  # first use: the capture (kernel build, allocator, cuDNN plans)
+                run(K_ITERS)
+                t1, tk = best_of(run, 1), best_of(run, K_ITERS)
+                batch_ms = (tk - t1) / (K_ITERS - 1) * 1e3
+                row.update({
+                    f"{prefix}batch_ms": batch_ms,
+                    f"{prefix}agg_fps": batch / batch_ms * 1e3,
+                    f"{prefix}dispatch_overhead_ms": t1 * 1e3 - batch_ms,
+                    f"{prefix}seq_ms_per_batch": t1 * 1e3,
+                })
+                if batch in settings.crosscheck:
+                    tc = best_of(run, K_CHECK)
+                    alt_ms = (tc - tk) / (K_CHECK - K_ITERS) * 1e3
+                    row[f"{prefix}batch_ms_alt"] = alt_ms
+                    row[f"{prefix}methods_agree_pct"] = round(
+                        abs(alt_ms - batch_ms) / batch_ms * 100.0, 1)
+                if engine.device.type == "cuda":
+                    row.update({prefix + k: v for k, v in device_window(run).items()})
+                    row[f"{prefix}sync_sites"] = step_sync_sites(step, x)
+        log(f"section 1: bucket {batch}: {row['batch_ms']:.3f} ms a batch "
+            f"({row['agg_fps']:.1f} frames/s), eager {row.get('eager_batch_ms')} ms")
         results.append(row)
         del x
     return results, int(probe[0].nbytes)

@@ -12,7 +12,9 @@ YOLOv8n (seeded weights, ``weights.synthetic_params``) served natively
 (B3, B2, B1 twice, B6 a step) and as the graph the port's
 ``models/onnx_export.yolo_to_onnx`` writes from the same tree (B4, B1
 twice, B6 a step), each timed by ``scripts/bench.py``'s differential at
-each bucket from 1080p frames. The JAX script wrote its graph with a torch
+each bucket from 1080p frames, as it serves: on the card the native step
+replayed as a captured CUDA graph, the graph-backed step eager
+(``engine/graphs.py``). The JAX script wrote its graph with a torch
 mirror of the model and ``torch.onnx``; the port writes it itself.
 
 Each row: ``step_ms``, ``ms_per_frame``, ``fps``, ``compute_dtype``,

@@ -13,19 +13,26 @@ pick, the selected step) and reports:
    in a synchronise (median of ``--reps``): host pick, upload, pad + cast,
    forward (stem, backbone, neck, head and decode), select (threshold and
    NMS), un-letterbox and download;
-2. ``step``: the whole step (``predict_arrays``) without those cuts, median;
+2. ``step``: the whole step (``predict_arrays``, which replays the step
+   captured as a CUDA graph: ``engine/graphs.py``) without those cuts,
+   median, and ``eager_step``: the same with the eager step called in its
+   place (``eager_predict``);
 3. ``concurrent``: ``--depth`` threads calling ``predict_arrays`` at once, as
    the batcher's ``pipeline_depth`` workers do: the median call and the
    frames per second of all threads together;
 4. ``contended``: the step while a thread beside it runs pure Python, as
    the pipeline's event loop does, at the default GIL switch interval and
-   at a 20x shorter one;
+   at a 20x shorter one; ``eager_contended`` the eager step so (a quarter
+   of the calls: each eager call takes the GIL back some 300 times);
 5. ``trace``: a ``torch.profiler`` window over ``--trace-steps`` steps: the
    device's busy time (kernels and copies, overlaps merged) and its idle
    share of the window, device time by kernel name per step (the 25
    largest, and under ``port_kernels_ms_per_step`` each hand-written kernel
-   of ``csrc/`` by its function name, the two stem kernels apart), and the
-   host calls that wait for the device per step.
+   of ``csrc/`` by its function name, the two stem kernels apart; CUPTI
+   reports a replayed graph's kernels one by one), the host calls that wait
+   for the device per step, the graph launches per step, and the CUDA
+   runtime calls inside the replays (``captured_step`` ranges): one
+   ``cudaGraphLaunch`` and no wait.
 
 It needs a CUDA card and fails without one. Every number names the card
 and its power limit.
@@ -123,12 +130,26 @@ def stage_times(eng, frames: np.ndarray, reps: int) -> dict:
     return {name: statistics.median(v[2:]) for name, v in rows.items()}
 
 
-def step_times(eng, frames: np.ndarray, reps: int) -> list:
-    eng.predict_arrays(frames)
+def eager_predict(eng, frames: np.ndarray) -> list:
+    """``predict_arrays`` with the eager step called in place of the cached
+    one: host pick, upload, the step, the copies back."""
+    from ..ops.preprocess import letterbox_spec
+
+    src_hw = frames.shape[1:3]
+    spec = letterbox_spec(src_hw, eng.input_hw)
+    host, selected = eng.host_prepare(frames, src_hw)
+    fn = eng._step_selected if selected else eng._step_device_resize
+    with torch.inference_mode():
+        return [t.cpu().numpy() for t in fn(torch.from_numpy(host).to(eng.device), spec)]
+
+
+def step_times(eng, frames: np.ndarray, reps: int, predict=None) -> list:
+    predict = predict or eng.predict_arrays
+    predict(frames)
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        eng.predict_arrays(frames)
+        predict(frames)
         times.append((time.perf_counter() - t0) * 1e3)
     return times
 
@@ -159,7 +180,7 @@ def concurrent_times(eng, frames: np.ndarray, depth: int, calls: int) -> dict:
                 frames_per_s=depth * calls * len(frames) / wall)
 
 
-def contended_times(eng, frames: np.ndarray, calls: int) -> dict:
+def contended_times(eng, frames: np.ndarray, calls: int, predict=None) -> dict:
     """The step while another thread runs pure Python, as the pipeline's
     event loop does beside the batcher's workers: at the interpreter's
     default GIL switch interval and at a 20x shorter one. A PyTorch call
@@ -179,7 +200,7 @@ def contended_times(eng, frames: np.ndarray, calls: int) -> dict:
             th = threading.Thread(target=spin)
             th.start()
             try:
-                times = step_times(eng, frames, calls)
+                times = step_times(eng, frames, calls, predict)
             finally:
                 stop.set()
                 th.join()
@@ -203,15 +224,19 @@ def _merged_span(intervals) -> float:
     return total
 
 
-def trace(eng, frames: np.ndarray, steps: int) -> dict:
+def trace(eng, frames: np.ndarray, steps: int, predict=None) -> dict:
+    """The profiler window of ``steps`` calls of ``predict`` (by default
+    ``eng.predict_arrays``; ``lambda f: eager_predict(eng, f)`` for the
+    eager step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eng.predict_arrays(frames)
+    predict = predict or eng.predict_arrays
+    predict(frames)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            eng.predict_arrays(frames)
+            predict(frames)
         torch.cuda.synchronize()
     events = list(prof.events())
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -235,6 +260,14 @@ def trace(eng, frames: np.ndarray, steps: int) -> dict:
     for e in events:
         if e.device_type == DeviceType.CPU and e.name in SYNC_CALLS:
             host_waits[e.name] += 1
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    replays = [e for e in cpu if e.name == "captured_step"]
+    in_replay = defaultdict(int)
+    for r in replays:
+        for e in cpu:
+            if (e.name.startswith("cuda") and e.thread == r.thread
+                    and r.time_range.start <= e.time_range.start <= r.time_range.end):
+                in_replay[e.name] += 1
     return dict(
         steps=steps, window_ms=window / 1e3, device_busy_ms=busy / 1e3,
         device_idle_share=1.0 - busy / window,
@@ -246,6 +279,9 @@ def trace(eng, frames: np.ndarray, steps: int) -> dict:
         ],
         port_kernels_ms_per_step=port,
         host_waits_per_step={k: v / steps for k, v in host_waits.items()},
+        graph_launches_per_step=sum(e.name == "cudaGraphLaunch" for e in cpu) / steps,
+        replays_per_step=len(replays) / steps,
+        runtime_calls_in_replay_per_step={k: v / steps for k, v in in_replay.items()},
     )
 
 
@@ -268,14 +304,19 @@ def main(argv=None) -> int:
     frames = synthetic_frames(args.batch)
     stages = stage_times(eng, frames, args.reps)
     steps = step_times(eng, frames, args.reps)
+    eager = step_times(eng, frames, args.reps, lambda f: eager_predict(eng, f))
     result = dict(
         card=card, batch=args.batch, conf=args.conf, precision=args.precision,
         stages_ms=stages, stages_sum_ms=sum(stages.values()),
         step_ms_median=statistics.median(steps), step_ms_min=min(steps),
+        eager_step_ms_median=statistics.median(eager), eager_step_ms_min=min(eager),
         frames_per_s=args.batch / statistics.median(steps) * 1e3,
         concurrent=concurrent_times(eng, frames, args.depth, args.reps),
         contended=contended_times(eng, frames, args.reps),
+        eager_contended=contended_times(eng, frames, max(2, args.reps // 4),
+                                        lambda f: eager_predict(eng, f)),
         trace=trace(eng, frames, args.trace_steps),
+        eager_trace=trace(eng, frames, args.trace_steps, lambda f: eager_predict(eng, f)),
     )
     text = json.dumps(result, indent=1)
     print(text)

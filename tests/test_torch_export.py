@@ -251,11 +251,11 @@ def test_a_program_checks_its_inputs_on_its_first_call(artifact):
     eng = ExportedYoloEngine(_det_cfg(artifact[0]))
     with pytest.raises(Exception, match="(?i)shape|size|dim"):
         eng._run_program(SRC_PICK, torch.zeros((1, 10, 10, 3), dtype=torch.uint8), "sel")
-    assert "192x192_b1_sel" not in eng._steps
+    assert "192x192_b1_sel" not in eng._loaded_programs
     ok = torch.zeros((1, INPUT, INPUT, 3), dtype=torch.uint8)
     with torch.inference_mode():
         eng._run_program(SRC_PICK, ok, "sel")
-    program, inputs = eng._steps["192x192_b1_sel"]
+    program, inputs = eng._loaded_programs["192x192_b1_sel"]
     assert program.validate_inputs is False and len(inputs) > 100
 
 

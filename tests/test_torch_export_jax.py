@@ -14,6 +14,7 @@ JAX engines run as the JAX package's own export tests run them on the CPU
 (its kernels' XLA forms).
 
 A JAX-made artifact is refused by the port with an error that names it.
+The exported YOLO engines key their steps alike.
 """
 
 import importlib.util
@@ -98,6 +99,19 @@ def test_exported_yolo_matches_the_jax_exported_engine(yolo_artifacts):
         np.testing.assert_allclose(got.boxes_xyxy[i, :n], want.boxes_xyxy[i, :n], atol=1e-2,
                                    rtol=0)
         np.testing.assert_allclose(got.scores[i, :n], want.scores[i, :n], atol=1e-4, rtol=0)
+
+
+def test_exported_yolo_steps_are_keyed_as_the_jax_exported_engine(yolo_artifacts):
+    """Both exported engines cache their runnable steps in ``_steps``
+    under the live engines' keys after the same warmup; the port keeps its
+    loaded programs apart, by name."""
+    kw, jax_path, torch_path = yolo_artifacts
+    want_eng = JaxExportedYolo(JaxConfig(**{**kw, "model_path": jax_path}))
+    got_eng = create_detector(DetectorConfig(**{**kw, "model_path": torch_path}))
+    want_eng.warmup((384, 384))
+    got_eng.warmup((384, 384))
+    assert set(got_eng._steps) == set(want_eng._steps) == {(4, 384, 384, "sel")}
+    assert set(got_eng._loaded_programs) == {"384x384_b4_sel"}
 
 
 def test_a_jax_made_artifact_is_refused_by_name(yolo_artifacts):

@@ -40,6 +40,7 @@ assert {"realtime_analytics_tpu_torch.ops.int8",
         "realtime_analytics_tpu_torch.models.onnx_export",
         "realtime_analytics_tpu_torch.models.quantize",
         "realtime_analytics_tpu_torch.engine.export",
+        "realtime_analytics_tpu_torch.engine.graphs",
         "realtime_analytics_tpu_torch.scripts.export_engine",
         "realtime_analytics_tpu_torch.scripts.quantize_model",
         "realtime_analytics_tpu_torch.scripts.export_temporal_model",
