@@ -35,6 +35,7 @@ import time
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..telemetry import spans
 from ..types import Detection, FramePacket
 
 logger = logging.getLogger(__name__)
@@ -296,9 +297,11 @@ class InferenceBatcher:
         packets = [it[0] for it in items]
         futures = [it[1] for it in items]
         submit_times = [it[2] for it in items]
+        batch = spans.new_batch()
         t0 = time.perf_counter()
         try:
-            results = await asyncio.to_thread(self.engine.predict_packets, packets)
+            results = await asyncio.to_thread(
+                spans.run_batch, batch, self.engine.predict_packets, packets)
         except asyncio.CancelledError:
             # stop() abandoned this batch (wedged device call): resolve the
             # frames as shed so their submit() callers unblock
@@ -322,6 +325,8 @@ class InferenceBatcher:
         st.sum_wait_ms += sum((t0 - t) * 1e3 for t in submit_times)
         if self.metrics is not None:
             self.metrics.observe_batch(len(items), infer_ms / 1e3)
+        if batch is not None:
+            batch.carried(packets, submit_times)
         for fut, dets in zip(futures, results):
             if not fut.done():
                 fut.set_result(dets)

@@ -124,6 +124,7 @@ from ..ops.preprocess import (
 )
 from ..ops.tiling import crop_tile, merge_frame, tile_grid
 from ..parallel.mesh import ShardedModel, make_mesh
+from ..telemetry import spans
 from ..types import BatchResult, Detection, FramePacket
 from .graphs import CapturedStep, EagerStep, StepCache
 
@@ -753,9 +754,11 @@ class TorchYoloEngine(PreparedState, BaseDetector):
 
     def predict_arrays(self, frames: np.ndarray) -> BatchResult:
         """frames: [N, H, W, 3] uint8 BGR (all same resolution)."""
-        src_hw = tuple(frames.shape[1:3])
-        frames, selected = self.host_prepare(frames, src_hw)
-        return self._predict_prepared(frames, src_hw, selected)
+        with spans.engine_batch():
+            src_hw = tuple(frames.shape[1:3])
+            with spans.span("pick"):
+                frames, selected = self.host_prepare(frames, src_hw)
+            return self._predict_prepared(frames, src_hw, selected)
 
     def _predict_prepared(self, frames: np.ndarray, src_hw: Tuple[int, int],
                           selected: bool) -> BatchResult:
@@ -787,8 +790,16 @@ class TorchYoloEngine(PreparedState, BaseDetector):
                        shape: Tuple[int, int]) -> BatchResult:
         """Batch-predict same-resolution frames through the cheapest path
         (host pixel pick > host letterbox resize > device letterbox)."""
+        with spans.span("pick"):
+            frames, selected = self._group_batch(frames_list, shape)
+        return self._predict_prepared(frames, shape, selected)
+
+    def _group_batch(self, frames_list: Sequence[np.ndarray],
+                     shape: Tuple[int, int]) -> Tuple[np.ndarray, bool]:
+        """The group as one batch to upload, and whether the host picked or
+        resized it (the selected step's input)."""
         if self._graph_backed:  # no stem to fold BGR and /255 into
-            return self._predict_prepared(np.stack(frames_list), shape, False)
+            return np.stack(frames_list), False
         spec = letterbox_spec(shape, self.input_hw)
         geom = self._select_geometry(spec) if self.config.host_select != "off" else None
         if geom is not None:
@@ -800,12 +811,12 @@ class TorchYoloEngine(PreparedState, BaseDetector):
             frames = np.empty((len(frames_list), oh, ow, 3), np.uint8)
             for j, f in enumerate(frames_list):
                 pick_u8(f, hr, hoff, wr, woff, out=frames[j])
-            return self._predict_prepared(frames, shape, True)
+            return frames, True
         if self._host_resize_active():
             frames = self._host_resize_packets(list(frames_list), spec)
             if frames is not None:
-                return self._predict_prepared(frames, shape, True)
-        return self._predict_prepared(np.stack(frames_list), shape, False)
+                return frames, True
+        return np.stack(frames_list), False
 
     def _tiling_active(self, shape: Tuple[int, int]) -> bool:
         return bool(self.config.tiling) and (
@@ -861,6 +872,10 @@ class TorchYoloEngine(PreparedState, BaseDetector):
     def predict_packets(self, packets: Sequence[FramePacket]) -> List[List[Detection]]:
         """Batch-predict frame packets; groups by source resolution, and
         tiles a group larger than the input when ``tiling`` is on."""
+        with spans.engine_batch():
+            return self._predict_packets(packets)
+
+    def _predict_packets(self, packets: Sequence[FramePacket]) -> List[List[Detection]]:
         by_shape: Dict[Tuple[int, int], List[int]] = {}
         for i, p in enumerate(packets):
             by_shape.setdefault(tuple(p.frame.shape[:2]), []).append(i)
@@ -871,12 +886,13 @@ class TorchYoloEngine(PreparedState, BaseDetector):
                 br = self._predict_tiled_group(frames_list, shape)
             else:
                 br = self._predict_group(frames_list, shape)
-            dets = br.to_detections(
-                [packets[i].stream.name for i in idxs],
-                [packets[i].frame_id for i in idxs],
-            )
-            for j, i in enumerate(idxs):
-                results[i] = dets[j]
+            with spans.span("detections"):
+                dets = br.to_detections(
+                    [packets[i].stream.name for i in idxs],
+                    [packets[i].frame_id for i in idxs],
+                )
+                for j, i in enumerate(idxs):
+                    results[i] = dets[j]
         return results
 
     def predict(self, packet: FramePacket) -> List[Detection]:

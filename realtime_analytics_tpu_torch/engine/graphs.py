@@ -39,6 +39,7 @@ graph-backed ONNX engine.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 
 from ..ops._cuda import LAUNCHES
+from ..telemetry import spans
 
 WARM_RUNS = 2  # eager runs of a step on a side stream before its capture
 
@@ -154,22 +156,34 @@ class CapturedStep:
             raise ValueError(f"step {self.key} was captured for {self.dtype} {self.shape}, "
                              f"got {x.dtype} {tuple(x.shape)}")
         self.input.copy_(x)
-        with torch.profiler.record_function("captured_step"):
+        with spans.span("captured_step"):
             self._graph.replay()
         for name, n in self.launches.items():
             LAUNCHES.add(name, n)
 
+    @contextlib.contextmanager
+    def _stepping(self):
+        """The step's lock, the wait for it a ``lock`` span, and the work
+        under it a ``step`` span."""
+        with spans.span("lock"):
+            self._lock.acquire()
+        try:
+            with spans.span("step"), torch.inference_mode():
+                yield
+        finally:
+            self._lock.release()
+
     def __call__(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """The step on ``x`` (on the card or the host): its outputs as new
         tensors on the card."""
-        with self._lock, torch.inference_mode():
+        with self._stepping():
             self._replay(x)
             return tuple(t.clone() for t in self.outputs)
 
     def run_host(self, frames: np.ndarray) -> Tuple[np.ndarray, ...]:
         """The step on a host batch: uploaded into the static input, the
         outputs copied back to the host."""
-        with self._lock, torch.inference_mode():
+        with self._stepping():
             self._replay(torch.from_numpy(np.ascontiguousarray(frames)))
             return tuple(t.to("cpu", copy=True).numpy() for t in self.outputs)
 
@@ -186,6 +200,6 @@ class EagerStep:
             return tuple(self._fn(x.to(self._device)))
 
     def run_host(self, frames: np.ndarray) -> Tuple[np.ndarray, ...]:
-        with torch.inference_mode():
+        with spans.span("step"), torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(frames)).to(self._device)
             return tuple(t.cpu().numpy() for t in self._fn(x))

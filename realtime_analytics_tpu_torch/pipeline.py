@@ -44,6 +44,7 @@ from .engine.temporal import TorchTemporalEngine
 from .ingest.ffmpeg_simulator import FFmpegStreamSimulator
 from .ingest.video_stream import StreamSourceError, VideoStream
 from .sinks.kafka_sink import KafkaSink
+from .telemetry import spans
 from .telemetry.metrics import MetricsPublisher
 from .tracker import IouTracker
 from .types import Detection, FramePacket, filter_detections
@@ -406,7 +407,8 @@ class StreamWorker:
             # success — not like a clean zero-detection result
             await self._skip_frame(packet)
             return
-        await self._finish_packet(packet, t_start, detections)
+        with spans.completing(self.stream.name, packet.frame_id, t_start):
+            await self._finish_packet(packet, t_start, detections)
 
     async def _finish_packet(
         self, packet: FramePacket, t_start: float, detections: List[Detection]
@@ -427,7 +429,8 @@ class StreamWorker:
                 detections, self.detector.config.confidence_threshold
             )
 
-        tracks = await self._tracker_update(detections)
+        with spans.span("tracker"):
+            tracks = await self._tracker_update(detections)
         self.metrics.update_counters(
             cfg.name,
             frames=1,
@@ -442,10 +445,11 @@ class StreamWorker:
                 inference_seconds=self.detector.last_infer_ms / 1e3
                 if detections else None,
             )
-        await self.kafka.send_tracks(
-            cfg.name, packet.frame_id, tracks, packet.frame,
-            health=self.health.health_score, fps=self.health.effective_fps,
-        )
+        with spans.span("sink"):
+            await self.kafka.send_tracks(
+                cfg.name, packet.frame_id, tracks, packet.frame,
+                health=self.health.health_score, fps=self.health.effective_fps,
+            )
         if self._snapshot_due():
             # draw + JPEG encode + disk write off the event loop: done
             # inline it would stall every stream's completions for the

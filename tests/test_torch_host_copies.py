@@ -43,7 +43,24 @@ COPIED_FILES = (
 # the module docstring may differ in each of these files
 BY_DESIGN = {
     "ingest/__init__.py": [],
-    "engine/batcher.py": [],
+    "engine/batcher.py": [  # the serving path's spans (telemetry/spans.py)
+        ("from ..types import Detection, FramePacket\n",
+         "from ..telemetry import spans\nfrom ..types import Detection, FramePacket\n"),
+        ("        t0 = time.perf_counter()\n"
+         "        try:\n"
+         "            results = await asyncio.to_thread(self.engine.predict_packets, packets)\n",
+         "        batch = spans.new_batch()\n"
+         "        t0 = time.perf_counter()\n"
+         "        try:\n"
+         "            results = await asyncio.to_thread(\n"
+         "                spans.run_batch, batch, self.engine.predict_packets, packets)\n"),
+        ("            self.metrics.observe_batch(len(items), infer_ms / 1e3)\n"
+         "        for fut, dets in zip(futures, results):\n",
+         "            self.metrics.observe_batch(len(items), infer_ms / 1e3)\n"
+         "        if batch is not None:\n"
+         "            batch.carried(packets, submit_times)\n"
+         "        for fut, dets in zip(futures, results):\n"),
+    ],
     "ops/tiling.py": [],
     "native/__init__.py": [  # the build cache lives in the checkout
         ('Path.home() / ".cache" / "rva_native")',
@@ -59,6 +76,26 @@ BY_DESIGN = {
          "        if isinstance(self.detector, TorchTemporalEngine):\n"),
         ("                buffer_size=len(buf) if buf else 0,",
          "                buffer_size=self.detector.buffered(cfg.name),"),
+        # the serving path's spans (telemetry/spans.py)
+        ("from .telemetry.metrics import MetricsPublisher\n",
+         "from .telemetry import spans\nfrom .telemetry.metrics import MetricsPublisher\n"),
+        ("            return\n"
+         "        await self._finish_packet(packet, t_start, detections)\n",
+         "            return\n"
+         "        with spans.completing(self.stream.name, packet.frame_id, t_start):\n"
+         "            await self._finish_packet(packet, t_start, detections)\n"),
+        ("        tracks = await self._tracker_update(detections)\n",
+         "        with spans.span(\"tracker\"):\n"
+         "            tracks = await self._tracker_update(detections)\n"),
+        ("        await self.kafka.send_tracks(\n"
+         "            cfg.name, packet.frame_id, tracks, packet.frame,\n"
+         "            health=self.health.health_score, fps=self.health.effective_fps,\n"
+         "        )\n",
+         "        with spans.span(\"sink\"):\n"
+         "            await self.kafka.send_tracks(\n"
+         "                cfg.name, packet.frame_id, tracks, packet.frame,\n"
+         "                health=self.health.health_score, fps=self.health.effective_fps,\n"
+         "            )\n"),
     ],
     "scripts/run_dashboard.py": [  # the port's program name
         ('        prog="realtime-analytics-dashboard",',

@@ -49,6 +49,7 @@ assert {"realtime_analytics_tpu_torch.ops.int8",
         "realtime_analytics_tpu_torch.parallel.dryrun",
         "realtime_analytics_tpu_torch.eval.detection_metrics",
         "realtime_analytics_tpu_torch.utils.profiling",
+        "realtime_analytics_tpu_torch.telemetry.spans",
         "realtime_analytics_tpu_torch.scripts.train",
         "realtime_analytics_tpu_torch.scripts.eval_detections",
         "realtime_analytics_tpu_torch.scripts.gen_streams",

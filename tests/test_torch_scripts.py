@@ -139,7 +139,7 @@ def test_make_demo_video_writes_readable_frames(tmp_path):
 def test_torch_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     import torch
 
-    from realtime_analytics_tpu_torch.utils.profiling import StageTimer, torch_trace
+    from realtime_analytics_tpu_torch.utils.profiling import torch_trace
 
     with torch_trace(str(tmp_path / "trace")):
         torch.ones(64, 64) @ torch.ones(64, 64)
@@ -149,15 +149,6 @@ def test_torch_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     assert any("mm" in str(e.get("name", "")) for e in events)
     with torch_trace(None):  # no logdir: no trace
         pass
-
-    timer = StageTimer()
-    for _ in range(2):
-        with timer.stage("step"):
-            pass
-    snap = timer.snapshot()
-    assert snap["step"]["calls"] == 2 and snap["step"]["avg_ms"] >= 0
-    timer.reset()
-    assert timer.snapshot() == {}
 
 
 def test_run_pipeline_takes_torch_profile():
