@@ -33,7 +33,11 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
    at the threshold, a NaN box, all and none valid, a chain, K=1024, K=8400
    on 2 and on 32 images (peak memory), bit-equal to the overlap matrix and
    its sweeps, its two passes timed apart, beside the overlap build and B6
-   on the matrix that it replaced; the overlap entry on the same cases), timed with
+   on the matrix that it replaced; the overlap entry on the same cases; B7
+   conv epilogue: bias, SiLU and shortcut in one pass at YOLOv8l's largest
+   b32 layer, then each of one YOLOv8l b32 step's 103 calls and of one
+   YOLOv8n b32 step's 61 (B3 on), bit-equal to PyTorch's bias ``add_``,
+   ``F.silu`` and ``x + y``), timed with
    CUDA events next to its plain version, the one PyTorch call that computes
    the same function where there is one, and its bound (the larger of bytes
    over 3.35 TB/s and operations over the dtype's dense peak, H100 SXM data
@@ -693,6 +697,131 @@ def check_nms_keep(gen):
         k8400_mask_us=split8400["nms_mask_kernel"], k8400_chain_us=split8400["nms_chain_kernel"],
         k8400_n32_ms=k8400_n32_ms, k8400_n32_peak_mb=k8400_n32_peak_mb,
         k8400_n32_chunk=scratch_chunk(N, 8400), card=CARD)))
+    return row
+
+
+def epilogue_step_calls(size):
+    """The epilogue's calls in one YOLOv8 ``size`` forward at 640 with B3 on
+    where it fits (YOLOv8n, the main path's and the cameras cell's model:
+    nodes 0-1 are B3's; YOLOv8l, the footage cell's: every node): ``(C, H,
+    W, act, residual pixel stride or None)`` each, recorded on the card at
+    batch 1."""
+    from realtime_analytics_tpu_torch.models import layers
+    from realtime_analytics_tpu_torch.models.yolo import build_yolo
+    from realtime_analytics_tpu_torch.ops.epilogue import residual_stride
+
+    model = build_yolo("yolov8", size, 80).to(device="cuda", dtype=torch.bfloat16,
+                                               memory_format=torch.channels_last).eval()
+    model.pallas_stem = "on"
+    calls, real = [], layers.conv_epilogue
+
+    def record(y, bias, act, residual=None):
+        stride = None if residual is None else residual_stride(y, residual)
+        calls.append((*y.shape[1:], act, stride))
+        return real(y, bias, act, residual)
+
+    layers.conv_epilogue = record
+    try:
+        model(torch.zeros(1, HW, HW, 3, device="cuda", dtype=torch.bfloat16), reduce_scores=True)
+    finally:
+        layers.conv_epilogue = real
+    del model
+    torch.cuda.empty_cache()
+    return calls
+
+
+def check_epilogue(gen):
+    """B7, a float conv's epilogue (bias, SiLU, shortcut add) in one pass,
+    against PyTorch's passes that it replaces (the cuDNN route's bias
+    ``add_``, ``F.silu``, the bottleneck's ``x + y``) at the benchmark's b32
+    shapes, bit for bit: YOLOv8l's largest layer ([32, 64, 320, 320], node
+    0, SiLU) timed beside its plain version, those two passes
+    (``library_ms``) and its bound (bytes: the output read and written
+    once); then every call of one YOLOv8l b32 step and of one YOLOv8n b32
+    step (B3 on), each held bit-equal and timed alone on the device (a
+    replayed graph), summed over the step."""
+    import torch.nn.functional as F
+
+    from realtime_analytics_tpu_torch.ops.epilogue import (
+        conv_epilogue,
+        conv_epilogue_plain,
+        epilogue_instantiation,
+        residual_stride,
+    )
+
+    def case(c, h, w, stride):
+        y = (torch.randn(N, c, h, w, generator=gen, device="cuda") * 3).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        bias = torch.randn(c, generator=gen, device="cuda").to(torch.bfloat16)
+        res = None
+        if stride is not None:
+            wide = torch.randn(N, stride, h, w, generator=gen, device="cuda").to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            res = wide[:, stride - c:]
+        return y, bias, res
+
+    def two_pass(y, bias, act, res):
+        y.add_(bias.reshape(1, -1, 1, 1))
+        if act:
+            y = F.silu(y)
+        return y if res is None else res + y
+
+    def held(y, bias, act, res):
+        want = two_pass(y.clone(), bias, act, res)
+        got = conv_epilogue(y.clone(), bias, act, res)
+        torch.cuda.synchronize()
+        return torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+    y, bias, _ = case(64, HW // 2, HW // 2, None)
+    assert held(y, bias, True, None), "B7 not bit-equal at [32, 64, 320, 320]"
+    ms = cuda_ms(lambda: conv_epilogue(y, bias, True), iters=50)
+    plain_ms = cuda_ms(lambda: conv_epilogue_plain(y, bias, True), iters=20)
+    lib_ms = cuda_ms(lambda: two_pass(y, bias, True, None), iters=20)
+    nbytes = 2 * y.numel() * y.element_size()
+    b_ms, b_by = bound(nbytes, 0.0, torch.bfloat16)
+    device_us = graph_us(lambda: conv_epilogue(y, bias, True), launches=20, replays=5)
+    host = host_us(dict(kernel=lambda: conv_epilogue(y, bias, True)), calls=200)
+    del y
+    torch.cuda.empty_cache()
+
+    def step_sum(size):
+        calls = epilogue_step_calls(size)
+        step = dict(calls=len(calls), act=sum(a for *_, a, _ in calls),
+                    residuals=sum(s is not None for *_, s in calls), kernel_ms=0.0,
+                    library_ms=0.0, bound_ms=0.0, bytes=0, instantiations=Counter(),
+                    widths=sorted({c for c, *_ in calls}))
+        unequal = []
+        for c, h, w, act, stride in calls:
+            y, bias, res = case(c, h, w, stride)
+            if not held(y, bias, act, res):
+                unequal.append([c, h, w, act, stride])
+            s = None if res is None else residual_stride(y, res)
+            step["instantiations"][epilogue_instantiation(
+                y.dtype, c, res is None or res.data_ptr() % 16 == 0, s)] += 1
+            # device time alone (replayed graphs): a small call's host cost
+            # exceeds its kernel, and a captured step pays none of it
+            k_ms = graph_us(lambda: conv_epilogue(y, bias, act, res), launches=10, replays=5) / 1e3
+            l_ms = graph_us(lambda: two_pass(y, bias, act, res), launches=10, replays=5) / 1e3
+            moved = y.numel() * y.element_size() * (3 if res is not None else 2)
+            step["kernel_ms"] += k_ms
+            step["library_ms"] += l_ms
+            step["bound_ms"] += moved / HBM_BYTES_PER_S * 1e3
+            step["bytes"] += moved
+            del y, res
+        assert not unequal, f"B7 not bit-equal in the YOLOv8{size} b32 step at {unequal}"
+        torch.cuda.empty_cache()
+        return dict(step, instantiations=dict(step["instantiations"]))
+
+    v8l, v8n = step_sum("l"), step_sum("n")
+    row = dict(name="conv_epilogue", route="cuda",
+               source="realtime_analytics_tpu_torch/csrc/epilogue.cu",
+               replaces="none: XLA's conv fusion of realtime_analytics_tpu/models/layers.py:119",
+               max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms)
+    log("B7 " + json.dumps(dict(
+        row, shape=[N, 64, HW // 2, HW // 2], bytes=nbytes, bit_equal=True,
+        device_us=device_us, host_us=host["kernel"], v8l_b32_step=v8l, v8n_b32_step=v8n,
+        card=CARD)))
     return row
 
 
@@ -2087,7 +2216,7 @@ def run_onnx(params, frames, resnet_params):
     # B6 has no knob (NMS's keep pass is the kernel on the card); the other
     # kernels stay off
     assert _cuda.LAUNCHES.snapshot() == dict(row_gather=0, decode_v8=0, fused_stem=0,
-                                             letterbox=0, nms_keep=1), \
+                                             letterbox=0, nms_keep=1, conv_epilogue=0), \
         "kernels launched with B4 and B1 off"
     _, off_score, off_box = hold("onnx graph fp32, B4 + B1 on against off", res, res_off,
                                  score_tol=1e-5, box_tol=1e-3)
@@ -3256,7 +3385,7 @@ TRACED_WINDOW = 4.0  # seconds of the K = 2 run under --torch-profile
 SHARD_TOPIC = "analytics.events"
 # the kernels every shard of the main path must launch, and the one it must not
 SHARD_KERNELS = ("row_gather_kernel", "decode_v8_kernel", "stem_mma_kernel",
-                 "nms_mask_kernel", "nms_chain_kernel")
+                 "nms_mask_kernel", "nms_chain_kernel", "conv_epilogue_kernel")
 SHARD_ABSENT = ("letterbox_kernel",)
 
 
@@ -3621,7 +3750,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         kernels = [check_gather(gen), check_decode(gen), check_stem(gen),
-                   check_letterbox(gen), check_nms_keep(gen)]
+                   check_letterbox(gen), check_nms_keep(gen), check_epilogue(gen)]
         torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -3727,9 +3856,9 @@ def main() -> int:
     log("launches by path " + json.dumps(paths))
     log("phase wall s " + json.dumps(dict(walls, total_since_start=time.perf_counter() - t0)))
     # launches: one step of the path whose shapes the row times (the main
-    # path for B1-B3 and B6, the device-resize step for B4); launches_by_path:
-    # each path's own count, read just after its own reset
-    for row, path in zip(kernels, ("main", "main", "main", "device_resize", "main")):
+    # path for B1-B3, B6 and B7, the device-resize step for B4);
+    # launches_by_path: each path's own count, read just after its own reset
+    for row, path in zip(kernels, ("main", "main", "main", "device_resize", "main", "main")):
         row["launches"] = paths[path][row["name"]]
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",

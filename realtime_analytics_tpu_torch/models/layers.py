@@ -17,6 +17,13 @@ dequantised in fp32), the JAX package's ``conv_act(act_int8=True)``.
 ``ConvAct.plain_weight`` dequantises the weights in bf16 (the JAX
 package's ``get_weight``) for the v5 head, which stays weight-only.
 
+The epilogue (``conv_bias_act``): on the card, where no gradient is
+needed, a float conv runs without its bias and one hand-written pass
+(``ops/epilogue.py``, B7) adds the bias, applies SiLU and adds a
+bottleneck's shortcut, with the roundings of PyTorch's separate passes. In
+every other case (the CPU, a train step) the conv takes its bias and SiLU
+and the shortcut add follow as before.
+
 Neck fusion: ``ConvAct.up_concat`` is the JAX package's
 ``_split_up_conv1x1_act``, a 1x1 conv over ``concat(up2x(x), y)`` computed
 from the two input-channel halves of its weight, so that neither the
@@ -33,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.epilogue import DTYPES as EPILOGUE_DTYPES, conv_epilogue
 from ..ops.int8 import QuantConv, conv2d_int8, pack_int8_weight
 
 
@@ -72,6 +80,30 @@ def conv_act(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
     return silu(y) if act else y
 
 
+def fuses_epilogue(x: torch.Tensor, *operands: Optional[torch.Tensor]) -> bool:
+    """A conv of ``x`` takes the epilogue kernel: ``x`` is a float tensor on
+    the card and no operand needs a gradient (the kernel has no
+    backward)."""
+    if x.device.type != "cuda" or x.dtype not in EPILOGUE_DTYPES:
+        return False
+    return not (torch.is_grad_enabled()
+                and any(t is not None and t.requires_grad for t in (x, *operands)))
+
+
+def conv_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+                  stride: int = 1, padding=None, act: bool = True,
+                  residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``residual + act(conv(x, w) + b)`` (no add without a residual).
+    Where ``fuses_epilogue`` holds, the conv runs without its bias and the
+    epilogue kernel does the rest in place on its (channels_last) output;
+    else the conv takes its bias and SiLU and the add follow."""
+    if fuses_epilogue(x, w, b, residual):
+        return conv_epilogue(conv2d(x, w, stride=stride, padding=padding), b, act, residual)
+    y = conv2d(x, w, b, stride=stride, padding=padding)
+    y = silu(y) if act else y
+    return y if residual is None else residual + y
+
+
 class ConvAct(nn.Module):
     """Conv (OIHW weight) + folded-BN bias + optional SiLU (YOLO "Conv";
     ``act=False`` is a plain conv). JAX params counterpart:
@@ -108,17 +140,20 @@ class ConvAct(nn.Module):
         return QuantConv(self.w_pack, self.w_scale, self.a_scale)
 
     def forward(self, x: torch.Tensor,
-                weight: Union[torch.Tensor, QuantConv, None] = None) -> torch.Tensor:
+                weight: Union[torch.Tensor, QuantConv, None] = None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``weight`` overrides the stored weight: a float tensor for a
-        float conv, a ``QuantConv`` for an int8 one."""
+        float conv, a ``QuantConv`` for an int8 one. ``residual``: a
+        bottleneck's shortcut, added last (``residual + y``)."""
         if self.w_q is not None:
             y = conv2d_int8(x, self.quant() if weight is None else weight, self.bias,
                             self.shape[0], self.shape[-1], stride=self.stride,
                             padding=self.padding)
-            return silu_xla(y) if self.act else y
-        y = conv2d(x, self.weight if weight is None else weight, self.bias,
-                   stride=self.stride, padding=self.padding)
-        return silu(y) if self.act else y
+            y = silu_xla(y) if self.act else y
+            return y if residual is None else residual + y
+        return conv_bias_act(x, self.weight if weight is None else weight, self.bias,
+                             stride=self.stride, padding=self.padding, act=self.act,
+                             residual=residual)
 
     def split_input(self, ch: int) -> None:
         """Keep the weight's input channels ``[:ch]`` and ``[ch:]`` as two
@@ -143,7 +178,10 @@ class ConvAct(nn.Module):
         else:
             w_a, w_b = self.weight[:, :ch], self.weight[:, ch:]
         a = conv2d(x_small, w_a.to(x_small.dtype))
-        b = conv2d(y_skip, w_b.to(y_skip.dtype)) + self.bias.to(y_skip.dtype)[:, None, None]
+        w_b = w_b.to(y_skip.dtype)
+        b = conv2d(y_skip, w_b)
+        b = (conv_epilogue(b, self.bias, False) if fuses_epilogue(y_skip, w_b, self.bias)
+             else b + self.bias.to(y_skip.dtype)[:, None, None])
         return silu(upsample2x(a) + b)
 
     def load_tree(self, node: Mapping, path: str) -> None:

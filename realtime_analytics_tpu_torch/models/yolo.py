@@ -127,10 +127,15 @@ class Bottleneck(nn.Module):
         super().__init__()
         self.cv1 = ConvAct(c1, c2, k1)
         self.cv2 = ConvAct(c2, c2, k2)
+        self.c2 = c2
 
     def forward(self, x: torch.Tensor, shortcut: bool) -> torch.Tensor:
-        y = self.cv2(self.cv1(x))
-        return x + y if shortcut and x.shape[1] == y.shape[1] else y
+        """``x + cv2(cv1(x))`` with the shortcut, the add done by ``cv2``
+        (on the card inside its epilogue); ``cv2(cv1(x))`` without."""
+        y = self.cv1(x)
+        if shortcut and x.shape[1] == self.c2:
+            return self.cv2(y, residual=x)
+        return self.cv2(y)
 
 
 class C2f(nn.Module):

@@ -29,8 +29,8 @@ counts its launch without a lock (``LaunchCounter``).
 
 Each kernel is also a registered torch op in the ``rva`` namespace
 (``rva::row_gather``, ``rva::decode_v8_levels``, ``rva::fused_stem_p1p2``,
-``rva::letterbox``, ``rva::nms_keep_boxes``, ``rva::nms_keep``; each module
-registers its own): a
+``rva::letterbox``, ``rva::nms_keep_boxes``, ``rva::nms_keep``,
+``rva::conv_epilogue``; each module registers its own): a
 CUDA implementation that reaches the same C entry and counts the same
 launch, a CPU implementation that is the plain version, and a fake one that
 gives the output's shape and dtype. ``torch.export`` keeps such an op as
@@ -72,7 +72,8 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 # the kernels of this package, by wrapper name
-KERNELS = ("row_gather", "decode_v8", "fused_stem", "letterbox", "nms_keep")
+KERNELS = ("row_gather", "decode_v8", "fused_stem", "letterbox", "nms_keep",
+           "conv_epilogue")
 
 _route = threading.local()
 
@@ -257,10 +258,12 @@ def lib() -> ctypes.CDLL:
             handle.rva_letterbox.argtypes = [i, p, p, p, p, p, *[i] * 15, p]
             handle.rva_nms_keep.argtypes = [i, p, p, p, p, i, i, i, p]
             handle.rva_nms_keep_boxes.argtypes = [i, p, p, p, p, i, i, ctypes.c_float, i, p]
+            handle.rva_conv_epilogue.argtypes = [i, p, p, p, p, i64, i64, i, i, i, i, p]
             handle.rva_cuda_error_string.argtypes = [i]
             handle.rva_cuda_error_string.restype = ctypes.c_char_p
             for fn in ("rva_row_gather", "rva_decode_v8_levels", "rva_fused_stem",
-                       "rva_letterbox", "rva_nms_keep", "rva_nms_keep_boxes"):
+                       "rva_letterbox", "rva_nms_keep", "rva_nms_keep_boxes",
+                       "rva_conv_epilogue"):
                 getattr(handle, fn).restype = i
             _lib = handle
     return _lib

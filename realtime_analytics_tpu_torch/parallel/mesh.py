@@ -270,16 +270,20 @@ class TpSplit(nn.Module):
     def _join(self, ys: List[torch.Tensor], dev: torch.device, dim: int) -> torch.Tensor:
         return torch.cat([y.to(dev) for y in ys], dim=dim)
 
-    def forward(self, x: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, weight: Optional[torch.Tensor] = None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``weight``: a whole override weight (the engine's folded stem),
-        sliced here per rank."""
+        sliced here per rank; ``residual``: a conv's shortcut (``ConvAct``),
+        its channels sliced per rank as the output's."""
         ys = []
         for t, part in enumerate(self.parts):
             dev = part.bias.device
-            if weight is None:
-                ys.append(part(x.to(dev)))
+            sl = slice(t * self.step, (t + 1) * self.step)
+            args = [x.to(dev)] if weight is None else [x.to(dev), weight[sl].to(dev)]
+            if residual is None:
+                ys.append(part(*args))
             else:
-                ys.append(part(x.to(dev), weight[t * self.step:(t + 1) * self.step].to(dev)))
+                ys.append(part(*args, residual=residual[:, sl].to(dev)))
         return self._join(ys, x.device, self.dim)
 
     def up_concat(self, x_small: torch.Tensor, y_skip: torch.Tensor) -> torch.Tensor:

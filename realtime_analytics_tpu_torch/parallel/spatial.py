@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..models.layers import conv_bias_act
 from ..models.yolo import YoloModel
 
 Bands = List[torch.Tensor]  # one NCHW tensor a sp rank, its rows of the image
@@ -251,9 +252,9 @@ def _cout(mod: nn.Module) -> int:
 
 def _conv_h(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int, pad: int,
             act: bool) -> torch.Tensor:
-    """A conv whose rows are already padded: padding only along the width."""
-    y = F.conv2d(x, w, b, stride=stride, padding=(0, pad))
-    return F.silu(y) if act else y
+    """A conv whose rows are already padded: padding only along the width
+    (on the card the epilogue kernel adds the bias and applies SiLU)."""
+    return conv_bias_act(x, w, b, stride=stride, padding=(0, pad), act=act)
 
 
 def banded_forward(model: YoloModel, devs: np.ndarray, x: torch.Tensor,

@@ -58,7 +58,7 @@ STAGES = ("host_pick", "upload", "pad_cast", "forward", "select_nms",
 # the __global__ functions of csrc/*.cu, as they appear in a trace
 PORT_KERNELS = ("row_gather_kernel", "decode_v8_kernel", "stem_mma_kernel",
                 "stem_general_kernel", "letterbox_kernel", "nms_mask_kernel",
-                "nms_chain_kernel")
+                "nms_chain_kernel", "conv_epilogue_kernel")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpyAsync", "cudaMemcpy")
 
