@@ -1,14 +1,28 @@
 """Where the benchmark finds its parts, each by the name it has in
-``BENCHMARK.json``. A later change adds a part by adding its files; none of
-these functions changes for it.
+``BENCHMARK.json`` or in another part's file. A later change adds a part by
+adding its files; none of these functions changes for it.
 
 * a cell: ``workloads/<cell>.json``, naming its configuration, its traffic
   mix, the cards it needs and the metrics it reports;
-* a configuration: ``configs/<config>.json``;
+* a configuration: ``configs/<config>.json``, whose ``kind`` names its
+  model kind;
+* a model kind: ``kinds/<kind>.py``, with everything the benchmark does
+  differently per model: ``checkpoint(ctx)`` (the seeded weights),
+  ``detector_config(ctx, model_path, buckets, warmup)`` (the engine's
+  settings), ``check(config, state_dict, samples, device)`` (the
+  comparison with the kind's plain reference under ``reference/``),
+  ``passes(checks)`` and ``control(config)`` (the control of the check);
 * a traffic mix: ``traffic/<mix>.json``, whose ``driver`` names a module
   ``traffic/<driver>.py`` with a ``run(ctx)`` function;
 * a metric: ``metrics/<metric>.py``, with a ``read(run)`` function and a
   ``UNIT`` string.
+
+A model of another kind is new files only: its kind ``kinds/<kind>.py``,
+its plain reference ``reference/<model>.py`` (fp32 torch, importing neither
+JAX nor the program), its configuration ``configs/<name>.json``, a driver
+under ``traffic/`` where neither present one serves it, a mix, a cell and
+its metrics. A module part is looked for under the cell's root, then under
+the benchmark's own directory.
 """
 
 from __future__ import annotations
@@ -34,10 +48,21 @@ class Cell:
     root: Path = ROOT
 
     def driver(self) -> ModuleType:
-        return load_module(self.root / "traffic" / f"{self.mix['driver']}.py")
+        return self._part("traffic", self.mix["driver"])
 
     def metric(self, name: str) -> ModuleType:
-        return load_module(self.root / "metrics" / f"{name}.py")
+        return self._part("metrics", name)
+
+    def kind(self) -> ModuleType:
+        if "kind" not in self.config:
+            raise ValueError(f"configuration {self.config.get('name')!r} names no kind")
+        return self._part("kinds", self.config["kind"])
+
+    def _part(self, directory: str, name: str) -> ModuleType:
+        path = self.root / directory / f"{name}.py"
+        if not path.is_file():
+            path = ROOT / directory / f"{name}.py"
+        return load_module(path)
 
 
 def read_json(path: Path) -> Dict:

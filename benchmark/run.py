@@ -7,8 +7,7 @@ run makes the cell's weights and frames from ``--seed``, builds the
 program's serving path as the cell's traffic driver sets it up (the set-up,
 timed as ``setup_s`` from the process's start), measures ``--seconds``
 seconds of the traffic, then checks what the timed path served against the
-plain fp32 reference (``reference/yolov8.py``) and prints one JSON line
-last on standard output:
+plain fp32 reference and prints one JSON line last on standard output:
 
 ``{"correct", "attempted", "failed", "metrics", "device", ["breakdown"],
 "card", "checks"}``
@@ -17,6 +16,16 @@ last on standard output:
 per-layer ones, read from a ``torch.profiler`` trace of the window's last
 seconds (``trace.py``) and from the program's counters. ``checks`` gives
 each number compared with its limit; the same lines end standard error.
+
+What differs per model lives in the configuration's model kind
+(``kinds/<kind>.py``, found by ``cells.Cell.kind``): the seeded weights,
+the engine's settings, the comparison with the kind's plain reference and
+its verdict, and the control of the check. This file holds none of it. A
+model of another kind is new files only: its kind ``kinds/<kind>.py``, its
+plain reference ``reference/<model>.py`` (fp32 torch, importing neither JAX
+nor the program), its configuration ``configs/<name>.json``, a driver under
+``traffic/`` where neither present one serves it, a mix, a cell and its
+metrics.
 
 It exits non-zero with no result where no CUDA card is visible, where the
 cell asks for more cards than there are, where the checkout holds no
@@ -84,16 +93,18 @@ def card_line() -> str:
 
 
 class Context:
-    """What a traffic driver is handed: the cell, the seed, the window's
-    length, the device, the tracer, and the helpers that make the cell's
-    inputs. The driver calls ``open_window`` when set-up is done and reports
-    its readings in the dict it returns."""
+    """What a traffic driver is handed: the cell, its model kind
+    (``model_kind``), the seed, the window's length, the device, the tracer,
+    and the helpers that make the cell's inputs. The driver calls
+    ``open_window`` when set-up is done and reports its readings in the dict
+    it returns."""
 
     def __init__(self, cell, seed: int, seconds: float, trace: bool, device: str,
                  workdir: str):
         from .trace import SECONDS, Tracer
 
         self.cell, self.config, self.mix = cell, cell.config, cell.mix
+        self.model_kind = cell.kind()
         self.seed, self.seconds, self.device, self.workdir = seed, seconds, device, workdir
         self.tracer = Tracer(trace)
         self.tracer_seconds = min(SECONDS, seconds)
@@ -101,25 +112,12 @@ class Context:
         self.t_open = self.t_open_wall = None
 
     def checkpoint(self) -> str:
-        """The cell's seeded checkpoint, written to the work directory; its
-        fp32 tensors stay on the host for the reference."""
-        from .weights import seeded_state_dict, write_checkpoint
-
-        sd = seeded_state_dict(self.config["scale"], self.seed, self.device)
-        self.state_dict = {k: v.cpu() for k, v in sd.items()}
-        return write_checkpoint(self.state_dict, self.workdir, self.config["scale"], self.seed)
+        """The cell's seeded checkpoint, by its model kind."""
+        return self.model_kind.checkpoint(self)
 
     def detector_config(self, model_path: str, buckets, warmup: bool):
-        from realtime_analytics_tpu_torch.config import DetectorConfig
-
-        c = self.config
-        return DetectorConfig(
-            model_path=model_path, model_type="yolov8", device=self.device,
-            confidence_threshold=c["confidence_threshold"], iou_threshold=c["iou_threshold"],
-            input_size=[c["input_size"], c["input_size"]], num_classes=c["nc"],
-            max_batch_size=max(buckets), batch_buckets=sorted(buckets),
-            max_detections=c["max_detections"], pre_nms_topk=c["pre_nms_topk"],
-            precision=c["precision"], warmup=warmup)
+        """The program's engine settings, by the cell's model kind."""
+        return self.model_kind.detector_config(self, model_path, buckets, warmup)
 
     def open_window(self) -> float:
         """Set-up ends: the measured window starts now (host clock)."""
@@ -143,44 +141,6 @@ class Run:
         self.readings, self.trace, self.card, self.kind = readings, trace or {}, card, kind
 
 
-def check(config: Dict, state_dict, samples, device: str) -> Dict:
-    """Each compared number's reading over the sampled frames, beside its
-    limit. ``samples``: (key, frame uint8 [H, W, 3], boxes, scores, classes);
-    the reference runs once over each distinct key, in blocks."""
-    import numpy as np
-    import torch
-
-    from . import compare
-    from .reference.yolov8 import YoloV8, run as reference_run
-
-    by_key: Dict = {}
-    for s in samples:
-        by_key.setdefault(s[0], []).append(s)
-    keys = list(by_key)
-    counts: List[Dict[str, int]] = []
-    model = YoloV8(state_dict, device) if keys else None
-    for lo in range(0, len(keys), 8):
-        block = keys[lo:lo + 8]
-        frames = torch.from_numpy(np.stack([by_key[k][0][1] for k in block]))
-        anchors, dets = reference_run(
-            model, frames, config["confidence_threshold"], config["iou_threshold"],
-            config["pre_nms_topk"], config["max_detections"], config["input_size"])
-        for k, a, d in zip(block, anchors, dets):
-            for _, _, boxes, scores, classes in by_key[k]:
-                counts.append(compare.frame_counts(a, d, boxes, scores, classes))
-    readings = compare.shares(counts)
-    out = {name: {"value": readings.get(name), "limit": limit}
-           for name, limit in config["limits"].items()}
-    out["frames"] = {"value": len(counts), "limit": 1}
-    return out
-
-
-def passes(checks: Dict) -> bool:
-    ok = checks["frames"]["value"] >= checks["frames"]["limit"]
-    return ok and all(c["value"] is None or c["value"] <= c["limit"]
-                      for k, c in checks.items() if k != "frames")
-
-
 def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda") -> Dict:
     """Run ``cell`` once and return its result line (a dict); ``setup_s``
     counts from the process's start."""
@@ -195,14 +155,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda")
         ctx = Context(cell, seed, seconds, trace, device, workdir)
         readings = cell.driver().run(ctx)
         setup_s = ctx.t_open_wall - started
-        state_dict, summary = ctx.state_dict, ctx.tracer.summary
+        model_kind, state_dict, summary = ctx.model_kind, ctx.state_dict, ctx.tracer.summary
         samples = readings.pop("samples")
         del ctx
         gc.collect()
         peak = torch.cuda.max_memory_allocated() if cuda else 0
         if cuda:
             torch.cuda.empty_cache()
-        checks = check(cell.config, state_dict, samples, device)
+        checks = model_kind.check(cell.config, state_dict, samples, device)
     kind = torch.cuda.get_device_name(0) if cuda else "cpu"
     run = Run(cell, seed, readings["window_s"], setup_s, readings, summary, card, kind)
     names = cell.per_layer if trace else cell.end_to_end
@@ -215,7 +175,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda")
     dev = {"platform": "gpu" if cuda else "cpu",
            "kind": kind,
            "count": cell.chips, "memory_peak_bytes": int(peak)}
-    result = {"correct": passes(checks), "attempted": int(readings["attempted"]),
+    result = {"correct": model_kind.passes(checks), "attempted": int(readings["attempted"]),
               "failed": int(readings["failed"]), "metrics": metrics, "device": dev}
     if trace and summary:
         dev["busy_s"], dev["window_s"] = summary["busy_s"], summary["window_s"]

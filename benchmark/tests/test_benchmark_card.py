@@ -37,20 +37,22 @@ CONTROL_SEEDS = (2**31 + 101, 2**31 + 102, 2**31 + 103)
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", [w["name"] for w in CELLS])
 def test_control_at_the_cells_size_is_not_correct(card, name):
-    """The control (the program's own int8 path) at the cell's own size and
-    load fails the check on three seeds, where the sound path passes on the
-    same seeds; each run's readings are printed (``pytest -s``)."""
+    """The control (its model kind's ``control``: for YOLOv8 the program's
+    own int8 path) at the cell's own size and load fails the check on three
+    seeds, where the sound path passes on the same seeds; each run's
+    readings are printed (``pytest -s``)."""
     from benchmark import run as bench
 
     bench.cache_env()
     seconds = 8.0 if load_cell(name).mix["driver"] == "cameras" else 5.0
     for seed in CONTROL_SEEDS:
-        for precision in (None, "int8"):
+        for control in (False, True):
             cell = load_cell(name)
-            if precision:
-                cell.config["precision"] = precision
+            if control:
+                cell.kind().control(cell.config)
             res = bench.run_cell(cell, seed, seconds, False, "cuda")
             checks = {k: c["value"] for k, c in res["checks"].items()}
-            print(json.dumps({"cell": name, "seed": seed, "precision": cell.config["precision"],
+            print(json.dumps({"cell": name, "seed": seed, "control": control,
+                              "precision": cell.config.get("precision"),
                               "correct": res["correct"], "checks": checks}), flush=True)
-            assert res["correct"] is (precision is None), checks
+            assert res["correct"] is not control, checks

@@ -84,6 +84,7 @@ def test_cameras_with_results_sliced_to_the_wrong_frames(monkeypatch):
 
 def test_control_int8_is_not_correct():
     cell = small_cell(*FOOTAGE_V8N)
-    cell.config["precision"] = "int8"
+    cell.kind().control(cell.config)
+    assert cell.config["precision"] == "int8"
     res = bench.run_cell(cell, SEED, 2.0, False, "cpu")
     assert not res["correct"], res["checks"]
