@@ -773,20 +773,20 @@ def check_epilogue(gen):
         return torch.equal(got.view(torch.int16), want.view(torch.int16))
 
     y, bias, _ = case(64, HW // 2, HW // 2, None)
-    assert held(y, bias, True, None), "B7 not bit-equal at [32, 64, 320, 320]"
-    ms = cuda_ms(lambda: conv_epilogue(y, bias, True), iters=50)
-    plain_ms = cuda_ms(lambda: conv_epilogue_plain(y, bias, True), iters=20)
+    assert held(y, bias, "silu", None), "B7 not bit-equal at [32, 64, 320, 320]"
+    ms = cuda_ms(lambda: conv_epilogue(y, bias, "silu"), iters=50)
+    plain_ms = cuda_ms(lambda: conv_epilogue_plain(y, bias, "silu"), iters=20)
     lib_ms = cuda_ms(lambda: two_pass(y, bias, True, None), iters=20)
     nbytes = 2 * y.numel() * y.element_size()
     b_ms, b_by = bound(nbytes, 0.0, torch.bfloat16)
-    device_us = graph_us(lambda: conv_epilogue(y, bias, True), launches=20, replays=5)
-    host = host_us(dict(kernel=lambda: conv_epilogue(y, bias, True)), calls=200)
+    device_us = graph_us(lambda: conv_epilogue(y, bias, "silu"), launches=20, replays=5)
+    host = host_us(dict(kernel=lambda: conv_epilogue(y, bias, "silu")), calls=200)
     del y
     torch.cuda.empty_cache()
 
     def step_sum(size):
         calls = epilogue_step_calls(size)
-        step = dict(calls=len(calls), act=sum(a for *_, a, _ in calls),
+        step = dict(calls=len(calls), act=sum(a is not None for *_, a, _ in calls),
                     residuals=sum(s is not None for *_, s in calls), kernel_ms=0.0,
                     library_ms=0.0, bound_ms=0.0, bytes=0, instantiations=Counter(),
                     widths=sorted({c for c, *_ in calls}))
@@ -823,6 +823,114 @@ def check_epilogue(gen):
         device_us=device_us, host_us=host["kernel"], v8l_b32_step=v8l, v8n_b32_step=v8n,
         card=CARD)))
     return row
+
+
+def slowfast_step_calls():
+    """The epilogue's calls in one SlowFast R50 8x8 forward (32 frames at
+    224, the clip cell's model): ``(shape [C, T, H, W], act, adds a
+    shortcut)`` each, from a forward on the meta device."""
+    from realtime_analytics_tpu_torch.models.slowfast import FoldedConv3d, SlowFastR50
+
+    with torch.device("meta"):
+        model = SlowFastR50()
+    calls = []
+    for mod in model.modules():
+        if isinstance(mod, FoldedConv3d):
+            mod.register_forward_hook(
+                lambda m, args, kwargs, out: calls.append(
+                    (tuple(out.shape[1:]), "relu" if kwargs.get("relu", True) else None,
+                     kwargs.get("residual") is not None)), with_kwargs=True)
+    with torch.no_grad():
+        model(torch.empty(1, 32, 224, 224, 3, device="meta"))
+    return calls
+
+
+def check_epilogue_relu(gen):
+    """B7's ReLU mode (``act="relu"``: bias, then the shortcut, then ReLU)
+    on ``channels_last_3d`` outputs at the clip cell's b32 shapes, against
+    PyTorch's passes it replaces (the cuDNN route's bias ``add_``, the
+    bottleneck's ``y + shortcut``, ``F.relu``), bit for bit: the largest
+    SlowFast epilogue (a slow res2 bottleneck's end, [32, 256, 8, 56, 56]
+    with its shortcut) and the slow stem's ([32, 64, 8, 112, 112], two
+    passes), each timed beside its plain version, the passes
+    (``library_ms``) and its bound (bytes: the output read and written, the
+    shortcut read, once each); then every call of one b32 step, held
+    bit-equal and timed alone on the device (a replayed graph)."""
+    import torch.nn.functional as F
+
+    from realtime_analytics_tpu_torch.ops.epilogue import (
+        conv_epilogue,
+        conv_epilogue_plain,
+        epilogue_instantiation,
+        residual_stride,
+    )
+
+    fmt = torch.channels_last_3d
+
+    def case(shape, shortcut):
+        y = (torch.randn(N, *shape, generator=gen, device="cuda") * 3).to(
+            torch.bfloat16).contiguous(memory_format=fmt)
+        bias = torch.randn(shape[0], generator=gen, device="cuda").to(torch.bfloat16)
+        res = (torch.randn(N, *shape, generator=gen, device="cuda") * 2).to(
+            torch.bfloat16).contiguous(memory_format=fmt) if shortcut else None
+        return y, bias, res
+
+    def passes(y, bias, act, res):
+        y.add_(bias.reshape(1, -1, 1, 1, 1))
+        if res is not None:
+            y = y + res
+        return F.relu(y) if act else y
+
+    def held(y, bias, act, res):
+        want = passes(y.clone(), bias, act, res)
+        got = conv_epilogue(y.clone(), bias, act, res)
+        torch.cuda.synchronize()
+        return torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+    rows = {}
+    for name, shape, shortcut in (("res2_end", (256, 8, 56, 56), True),
+                                  ("slow_stem", (64, 8, 112, 112), False)):
+        y, bias, res = case(shape, shortcut)
+        assert held(y, bias, "relu", res), f"B7 relu not bit-equal at {[N, *shape]}"
+        nbytes = (3 if shortcut else 2) * y.numel() * y.element_size()
+        b_ms, b_by = bound(nbytes, 0.0, torch.bfloat16)
+        rows[name] = dict(
+            shape=[N, *shape], shortcut=shortcut, bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
+            ms=cuda_ms(lambda: conv_epilogue(y, bias, "relu", res), iters=50),
+            device_us=graph_us(lambda: conv_epilogue(y, bias, "relu", res), launches=20,
+                               replays=5),
+            plain_ms=cuda_ms(lambda: conv_epilogue_plain(y, bias, "relu", res), iters=20),
+            library_ms=cuda_ms(lambda: passes(y, bias, "relu", res), iters=20),
+            library_device_us=graph_us(lambda: passes(y, bias, "relu", res), launches=10,
+                                       replays=5))
+        del y, res
+        torch.cuda.empty_cache()
+
+    step = dict(calls=0, shortcuts=0, kernel_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes=0,
+                instantiations=Counter())
+    unequal = []
+    for shape, act, shortcut in slowfast_step_calls():
+        y, bias, res = case(shape, shortcut)
+        if not held(y, bias, act, res):
+            unequal.append([list(shape), act, shortcut])
+        s = None if res is None else residual_stride(y, res)
+        step["instantiations"][epilogue_instantiation(y.dtype, shape[0], True, s)] += 1
+        moved = y.numel() * y.element_size() * (3 if shortcut else 2)
+        step["calls"] += 1
+        step["shortcuts"] += int(shortcut)
+        step["kernel_ms"] += graph_us(lambda: conv_epilogue(y, bias, act, res),
+                                      launches=10, replays=5) / 1e3
+        step["library_ms"] += graph_us(lambda: passes(y, bias, act, res),
+                                       launches=10, replays=5) / 1e3
+        step["bound_ms"] += moved / HBM_BYTES_PER_S * 1e3
+        step["bytes"] += moved
+        del y, res
+    assert not unequal, f"B7 not bit-equal in the SlowFast b32 step at {unequal}"
+    torch.cuda.empty_cache()
+    out = dict(rows, sf50_b32_step=dict(step, instantiations=dict(step["instantiations"])),
+               card=CARD)
+    log("B7 relu " + json.dumps(out))
+    return out
 
 
 def stem_ptxas(lines):
@@ -3751,6 +3859,7 @@ def main() -> int:
     with torch.inference_mode():
         kernels = [check_gather(gen), check_decode(gen), check_stem(gen),
                    check_letterbox(gen), check_nms_keep(gen), check_epilogue(gen)]
+        check_epilogue_relu(gen)
         torch.cuda.synchronize()
     torch.cuda.empty_cache()
 

@@ -174,9 +174,13 @@ VALID_MODEL_TYPES = {
     "3d_cnn",
     "conv_gru",
     "slow_fast",
+    "slowfast_r50",
 }
 
-TEMPORAL_MODEL_TYPES = {"cnn_lstm", "3d_cnn", "conv_gru", "slow_fast"}
+# slowfast_r50: the published SlowFast R50 8x8 (models/slowfast.py), which
+# the JAX package does not have; slow_fast is the JAX package's small model
+TEMPORAL_MODEL_TYPES = {"cnn_lstm", "3d_cnn", "conv_gru", "slow_fast", "slowfast_r50"}
+SLOWFAST_ALPHA = 4  # slowfast_r50's slow pathway takes every 4th of T frames
 
 
 @dataclass
@@ -362,6 +366,15 @@ class DetectorConfig:
                 raise ConfigError("temporal_pooling must be one of: avg, max, last")
             if self.num_action_classes <= 0:
                 raise ConfigError("num_action_classes must be > 0")
+        if self.model_type == "slowfast_r50":
+            if self.sequence_length % SLOWFAST_ALPHA:
+                raise ConfigError(
+                    f"slowfast_r50 needs a sequence_length that is a multiple of "
+                    f"alpha = {SLOWFAST_ALPHA} (its slow pathway's frames), got "
+                    f"{self.sequence_length}")
+            if self.mesh_shape is not None:
+                raise ConfigError("slowfast_r50 is served on one device: mesh_shape is not "
+                                  "supported for it")
         if self.max_batch_size < 1:
             raise ConfigError("max_batch_size must be >= 1")
         if self.max_detections < 1:

@@ -1,5 +1,5 @@
-// B7: a float conv's elementwise epilogue in one pass: bias, SiLU and the
-// shortcut add over the conv's channels_last output.
+// B7: a float conv's elementwise epilogue in one pass: bias, SiLU or ReLU and
+// the shortcut add over the conv's channels_last (or channels_last_3d) output.
 //
 // Replaces: no Pallas kernel. On the TPU, XLA fuses the JAX package's conv
 // bias and `x * sigmoid(x)` (models/layers.py::conv_act) into the conv's own
@@ -12,12 +12,18 @@
 // its bias.
 //
 // Arithmetic, in this order, each step rounded to the output's type as the
-// PyTorch passes round it, so the result is theirs bit for bit:
+// PyTorch passes round it, so the result is theirs bit for bit. act 0 or 1
+// (YOLO's Conv, and its bottleneck's shortcut after the activation):
 //   y = round(y + bias[c])
-//   y = round(y / (1 + expf(-y)))      when act: at::native's SiLU in fp32
+//   y = round(y / (1 + expf(-y)))      when act == 1: at::native's SiLU in fp32
 //   y = round(residual + y)            when a residual is given
+// act 2 (a ResNet conv, and its bottleneck's shortcut before the activation):
+//   y = round(y + bias[c])
+//   y = round(residual + y)            when a residual is given
+//   y = relu(y)                        at::clamp_min's: NaN kept, else fmaxf
 // The build has no fast-math flag, so expf and the division are the
-// accurate ones that PyTorch's kernels use.
+// accurate ones that PyTorch's kernels use. The ReLU mode is an instantiation
+// of its own (kRelu), so the SiLU modes' code is what it was before it.
 //
 // What bounds it on the card: bytes. Per element it reads the conv output
 // (and the residual) and writes it once, with two dozen flops, far below the
@@ -41,6 +47,9 @@
 // Loading two or four units before computing any (more bytes in flight)
 // took 118 registers a thread and was slower; capping the registers at 32
 // for a full SM spilled and was slower too (PERF.md, §6).
+//
+// A 5-d conv output in channels_last_3d ([N, D, H, W, C] contiguous) is the
+// same [pixels, C] walk, its pixels counted over D, H and W.
 //
 // Two instantiations (ops/epilogue.py picks, as epilogue_instantiation
 // says): `vec16`, 16-byte units within one pixel (C a multiple of the unit,
@@ -109,11 +118,21 @@ struct Pair<__nv_bfloat16> {
 
 __device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
 
+// at::clamp_min(v, 0) on the card: a NaN passes, else the max.
+__device__ __forceinline__ float relu(float v) {
+  return isnan(v) ? v : fmaxf(v, 0.0f);
+}
+
 // One element: the value to store (its last rounding is the store's).
-template <typename T>
+template <typename T, bool kRelu>
 __device__ __forceinline__ float epilogue(float v, float b, int act,
                                           const T* r) {
   v += b;
+  if (kRelu) {
+    v = to_f32(from_f32<T>(v));
+    if (r != nullptr) v = to_f32(from_f32<T>(to_f32(*r) + v));
+    return relu(v);
+  }
   if (act || r != nullptr) v = to_f32(from_f32<T>(v));
   if (act) {
     v = silu(v);
@@ -124,10 +143,18 @@ __device__ __forceinline__ float epilogue(float v, float b, int act,
 }
 
 // Two neighbouring elements, the same steps, rounded in pairs.
-template <typename T>
+template <typename T, bool kRelu>
 __device__ __forceinline__ float2 epilogue2(float2 v, float2 b, int act,
                                             const T* r) {
   v = make_float2(v.x + b.x, v.y + b.y);
+  if (kRelu) {
+    v = Pair<T>::round(v);
+    if (r != nullptr) {
+      const float2 rv = Pair<T>::load(r);
+      v = Pair<T>::round(make_float2(rv.x + v.x, rv.y + v.y));
+    }
+    return make_float2(relu(v.x), relu(v.y));
+  }
   if (act || r != nullptr) v = Pair<T>::round(v);
   if (act) {
     v = make_float2(silu(v.x), silu(v.y));
@@ -164,7 +191,8 @@ __device__ __forceinline__ void load_bias(const float* bias_f, int ch,
 // res[p * res_stride + ch], or null. kAligned: a unit lies within one pixel
 // (c % kVec == 0), so its bias and residual are kVec neighbours; else each
 // element finds its own channel and pixel, and the last unit is masked.
-template <typename T, int kVec, bool kAligned>
+// kRelu: act 2 (ReLU after the shortcut add); act is read only without it.
+template <typename T, int kVec, bool kAligned, bool kRelu>
 __global__ void __launch_bounds__(kThreads)
 conv_epilogue_kernel(const T* x, T* out, const T* __restrict__ bias,
                      const T* res, int64_t res_stride, int64_t elems, int c,
@@ -196,7 +224,7 @@ conv_epilogue_kernel(const T* x, T* out, const T* __restrict__ bias,
       load_bias<kVec>(bias_f, ch, b);
 #pragma unroll
       for (int i = 0; i < kVec; i += 2) {
-        Pair<T>::store(&o.v[i], epilogue2<T>(
+        Pair<T>::store(&o.v[i], epilogue2<T, kRelu>(
             Pair<T>::load(&in.v[i]), make_float2(b[i], b[i + 1]), act,
             res != nullptr ? &r.v[i] : nullptr));
       }
@@ -213,7 +241,7 @@ conv_epilogue_kernel(const T* x, T* out, const T* __restrict__ bias,
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
         if (i < n) {
-          o.v[i] = from_f32<T>(epilogue<T>(
+          o.v[i] = from_f32<T>(epilogue<T, kRelu>(
               to_f32(in.v[i]), bias_f[cc], act,
               res != nullptr ? res + pp * res_stride + cc : nullptr));
         }
@@ -252,7 +280,7 @@ int sm_count(int device) {
   return counts[device];
 }
 
-template <typename T, int kVec, bool kAligned>
+template <typename T, int kVec, bool kAligned, bool kRelu>
 int launch(int device, const void* x, void* out, const void* bias,
            const void* res, int64_t res_stride, int64_t elems, int c, int act,
            cudaStream_t s) {
@@ -260,7 +288,7 @@ int launch(int device, const void* x, void* out, const void* bias,
   const int64_t want = (units + kThreads - 1) / kThreads;
   int per_sm = 0;  // the blocks an SM holds at once: one wave
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, conv_epilogue_kernel<T, kVec, kAligned>, kThreads,
+          &per_sm, conv_epilogue_kernel<T, kVec, kAligned, kRelu>, kThreads,
           c * sizeof(float)) != cudaSuccess ||
       per_sm < 1) {
     (void)cudaGetLastError();
@@ -268,7 +296,7 @@ int launch(int device, const void* x, void* out, const void* bias,
   }
   const int64_t most = (int64_t)sm_count(device) * per_sm;
   const int blocks = (int)(want < most ? want : most);
-  conv_epilogue_kernel<T, kVec, kAligned>
+  conv_epilogue_kernel<T, kVec, kAligned, kRelu>
       <<<blocks, kThreads, c * sizeof(float), s>>>(
           static_cast<const T*>(x), static_cast<T*>(out),
           static_cast<const T*>(bias), static_cast<const T*>(res), res_stride,
@@ -276,18 +304,32 @@ int launch(int device, const void* x, void* out, const void* bias,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int kVec>
+int dispatch(int device, const void* x, void* out, const void* bias,
+             const void* res, int64_t res_stride, int64_t elems, int c, int act,
+             int mode, cudaStream_t s) {
+  if (act == 2) {
+    if (mode == 1) return launch<T, kVec, true, true>(device, x, out, bias, res, res_stride, elems, c, 0, s);
+    return launch<T, kVec, false, true>(device, x, out, bias, res, res_stride, elems, c, 0, s);
+  }
+  if (mode == 1) return launch<T, kVec, true, false>(device, x, out, bias, res, res_stride, elems, c, act, s);
+  return launch<T, kVec, false, false>(device, x, out, bias, res, res_stride, elems, c, act, s);
+}
+
 }  // namespace
 
 // x, out: [pixels, c] contiguous, bf16 (is_bf16) or fp32; out may equal x.
 // bias: [c] of the same type. res: null, or element (p, ch) at
-// res[p * res_stride + ch]. mode: 1 vec16, 0 flat16 (ops/epilogue.py
-// decides; the entry refuses a mode the pointers do not allow). All on CUDA
-// device `device`; the launch goes to `stream`.
+// res[p * res_stride + ch]. act: 0 none, 1 SiLU (before the add), 2 ReLU
+// (after the add). mode: 1 vec16, 0 flat16 (ops/epilogue.py decides; the
+// entry refuses a mode the pointers do not allow). All on CUDA device
+// `device`; the launch goes to `stream`.
 extern "C" int rva_conv_epilogue(int device, const void* x, void* out,
                                  const void* bias, const void* res,
                                  int64_t res_stride, int64_t pixels, int c,
                                  int act, int is_bf16, int mode, void* stream) {
-  if (c < 1 || c > kMaxChannels || pixels < 0 || mode < 0 || mode > 1) {
+  if (c < 1 || c > kMaxChannels || pixels < 0 || mode < 0 || mode > 1 ||
+      act < 0 || act > 2) {
     return (int)cudaErrorInvalidValue;
   }
   const int vec = is_bf16 ? 8 : 4;
@@ -304,10 +346,7 @@ extern "C" int rva_conv_epilogue(int device, const void* x, void* out,
   if (elems == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
-    using T = __nv_bfloat16;
-    if (mode == 1) return launch<T, 8, true>(device, x, out, bias, res, res_stride, elems, c, act, s);
-    return launch<T, 8, false>(device, x, out, bias, res, res_stride, elems, c, act, s);
+    return dispatch<__nv_bfloat16, 8>(device, x, out, bias, res, res_stride, elems, c, act, mode, s);
   }
-  if (mode == 1) return launch<float, 4, true>(device, x, out, bias, res, res_stride, elems, c, act, s);
-  return launch<float, 4, false>(device, x, out, bias, res, res_stride, elems, c, act, s);
+  return dispatch<float, 4>(device, x, out, bias, res, res_stride, elems, c, act, mode, s);
 }

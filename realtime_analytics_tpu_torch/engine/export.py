@@ -103,7 +103,7 @@ from .detector import (
     to_graph_device,
 )
 from .graphs import StepCache
-from .temporal import TorchTemporalEngine
+from .temporal import ClipStaging, ClipStats, TorchTemporalEngine
 
 logger = logging.getLogger(__name__)
 
@@ -742,6 +742,8 @@ class ExportedTemporalEngine(_ArtifactMixin, TorchTemporalEngine):
             1, int(self.config.sequence_length * (1.0 - self.config.temporal_overlap)))
         self._buffers = {}
         self._warned_no_cv2 = False
+        self.stats = ClipStats()
+        self._staging = ClipStaging(self.device.type == "cuda")
 
     def predict_clips(self, sequences):
         self._guard_groups(seq[0].frame.shape[:2] for seq in sequences)

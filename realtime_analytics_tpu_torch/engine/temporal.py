@@ -13,7 +13,10 @@ Counterpart of ``realtime_analytics_tpu/engine/temporal.py``
     (softmax), full-frame boxes, clip start/end frame ids.
 
 Preprocessing per family: CNN-LSTM/ConvGRU use ImageNet mean/std at
-224x224; 3D-CNN/SlowFast use mean/std 0.45/0.225 at 112x112. With
+224x224; 3D-CNN/SlowFast use mean/std 0.45/0.225 at 112x112, and
+``slowfast_r50`` (the published SlowFast R50 8x8, ``models/slowfast.py``;
+T a multiple of 4, as PySlowFast's 32 frames at stride 2) the same at
+224x224. With
 ``host_resize`` active (auto = on for the card, and it needs cv2) the clip
 frames are stretched on the host; otherwise the device step stretches the
 full frames: kernel B4 on the card unless ``pallas_preprocess: off``, else
@@ -26,13 +29,28 @@ graph (``models/onnx_graph_model.py``) in the same clip step.
 mesh, as the JAX engine does (``BaseDetector._init_mesh``): clip buckets
 round up to a multiple of dp, the clips split over dp (B4 once per dp
 shard of their frames), conv and dense channels over tp (graphs: dp only).
+
+Tracing (``telemetry/spans.py``; on while a profiler records): a
+``predict_clips`` or ``predict_packets`` call is an engine batch
+(``spans.engine_batch``) holding, per group of frame shape, a
+``clip_pack`` span (the host assembles the clips: stack or host resize,
+and the padding to the bucket) and a ``clip_step`` span (the upload, the
+forward, the top-5 and logits coming back). ``stats`` (``ClipStats``)
+counts calls, clips, the clips' frames packed on the host and the bytes
+uploaded, always. ``predict_clips(..., return_logits=True)`` also returns
+the fp32 logits the step computed, clip by clip.
+
+The pack writes a call's clips into the engine's reused staging buffers
+(``ClipStaging``), pinned on the card up to ``PIN_BYTES`` an engine.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from collections import deque
+from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,6 +66,7 @@ from ..models.weights import (
     temporal_synthetic_params,
 )
 from ..ops.letterbox import stretch_spec
+from ..telemetry import spans
 from ..types import Detection, FramePacket, TemporalDetection
 from .detector import (
     BaseDetector,
@@ -65,6 +84,72 @@ from .detector import (
 logger = logging.getLogger(__name__)
 
 TOP_K = 5  # reference emits top-5 actions per clip
+NORM_045 = ("3d_cnn", "slow_fast", "slowfast_r50")  # mean/std 0.45/0.225 (Kinetics)
+PIN_BYTES = 256 << 20  # an engine's staging buffers pinned in host memory, at most
+
+
+@dataclass
+class ClipStats:
+    """The engine's counters: ``predict_clips`` calls, clips served (no
+    padding), their frames packed on the host (clips x T), and the bytes of
+    the clip arrays uploaded (padding included)."""
+
+    calls: int = 0
+    clips: int = 0
+    frames_packed: int = 0
+    bytes_uploaded: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
+
+    def add(self, calls: int = 0, clips: int = 0, frames: int = 0, nbytes: int = 0) -> None:
+        with self._lock:
+            self.calls += calls
+            self.clips += clips
+            self.frames_packed += frames
+            self.bytes_uploaded += nbytes
+
+
+class ClipStaging:
+    """An engine's reusable uint8 clip buffers, [clips, T, h, w, 3]. A call
+    takes one for its packed clips and gives it back after its step, so a
+    call neither allocates nor faults in a fresh batch: ``take`` hands out
+    the smallest free buffer of the frame shape with room for the clips;
+    where none has room, or the frame shape differs, it releases the free
+    ones and makes a new one. So the buffers kept are of one frame shape,
+    no more than the calls that ran at once. On the card up to
+    ``PIN_BYTES`` of them in all are pinned, so their upload is one DMA the
+    host does not copy through; the rest (full-frame clips) are pageable.
+    Concurrent calls (the batcher runs several) each hold their own."""
+
+    def __init__(self, pin: bool):
+        self._pin = pin
+        self._lock = threading.Lock()
+        self._shape: Optional[Tuple[int, ...]] = None  # the frame shape of the buffers kept
+        self._free: List[torch.Tensor] = []
+        self.pinned_bytes = 0
+
+    def take(self, clips: int, shape: Tuple[int, ...]) -> torch.Tensor:
+        with self._lock:
+            fits = [k for k, buf in enumerate(self._free) if buf.shape[0] >= clips]
+            if fits and shape == self._shape:
+                return self._free.pop(min(fits, key=lambda k: self._free[k].shape[0]))
+            for buf in self._free:
+                self._drop(buf)
+            self._free, self._shape = [], shape
+            nbytes = clips * int(np.prod(shape))
+            pinned = self._pin and self.pinned_bytes + nbytes <= PIN_BYTES
+            self.pinned_bytes += nbytes if pinned else 0
+        return torch.empty((clips, *shape), dtype=torch.uint8, pin_memory=pinned)
+
+    def give(self, buf: torch.Tensor) -> None:
+        with self._lock:
+            if tuple(buf.shape[1:]) == self._shape:
+                self._free.append(buf)
+            else:
+                self._drop(buf)
+
+    def _drop(self, buf: torch.Tensor) -> None:
+        if self._pin and buf.is_pinned():
+            self.pinned_bytes -= buf.numel()
 
 
 class TorchTemporalEngine(PreparedState, BaseDetector):
@@ -83,7 +168,7 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
         )
         self.input_hw: Tuple[int, int] = config.resolved_input_size
         self.compute_dtype = compute_dtype_of(config)
-        if config.model_type in ("3d_cnn", "slow_fast"):
+        if config.model_type in NORM_045:
             mean, std = (0.45, 0.45, 0.45), (0.225, 0.225, 0.225)
         else:
             mean, std = IMAGENET_MEAN, IMAGENET_STD
@@ -116,6 +201,8 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
         self._bucket_cost_ms: Dict[Tuple[int, int], Dict[int, float]] = {}
         self._warned_no_cv2 = False
         self.last_infer_ms = 0.0
+        self.stats = ClipStats()
+        self._staging = ClipStaging(self.device.type == "cuda")
         self._operands = {}
         # multi-device: [dp, tp] shards channels over tp, clip batches over
         # dp (temporal graphs: dp only)
@@ -160,29 +247,42 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
             return False
         return True
 
-    def _host_resize_clips(self, sequences, idxs, src_hw) -> Optional[np.ndarray]:
-        """[B, T, th, tw, 3] uint8 clips, stretched frame by frame on the
-        host straight into the batch buffer. None when inactive or a
-        no-op."""
-        th, tw = self.input_hw
-        if tuple(src_hw) == (th, tw) or not self._host_resize_active():
-            return None
-        t_len = self.config.sequence_length
-        out = np.empty((len(idxs), t_len, th, tw, 3), dtype=np.uint8)
-        for j, i in enumerate(idxs):
-            cv2_stretch([p.frame for p in sequences[i]], (th, tw), out=out[j])
-        return out
+    def _resizes(self, src_hw) -> bool:
+        """Whether clips of ``src_hw`` frames are stretched on the host."""
+        return tuple(src_hw) != tuple(self.input_hw) and self._host_resize_active()
 
-    def _clip_head(self, x: torch.Tensor, b: int):
-        """x: [B*T, th, tw, 3] fp32 RGB in [0, 1] -> softmax top-5."""
+    def _pack(self, sequences, idxs, src_hw, bucket: int) -> Tuple[torch.Tensor, bool]:
+        """(buffer, resized): the group's clips in a staging buffer
+        (``ClipStaging.take``; the step reads its first max(n, bucket)), as
+        uint8 [T, h, w, 3] each, stretched frame by frame (cv2) on the host
+        when ``_resizes``, else stacked as they are, padded by repeating the
+        last. The caller gives the buffer back after the step."""
+        n, t_len = len(idxs), self.config.sequence_length
+        resized = self._resizes(src_hw)
+        hw = tuple(self.input_hw) if resized else tuple(src_hw)
+        buf = self._staging.take(max(n, bucket), (t_len, *hw, 3))
+        out = buf.numpy()[:max(n, bucket)]
+        for j, i in enumerate(idxs):
+            frames = [p.frame for p in sequences[i]]
+            if resized:
+                cv2_stretch(frames, hw, out=out[j])
+            else:
+                np.stack(frames, out=out[j])
+        out[n:] = out[n - 1]
+        return buf, resized
+
+    def _clip_head(self, x: torch.Tensor, b: int, logits: bool = False):
+        """x: [B*T, th, tw, 3] fp32 RGB in [0, 1] -> softmax top-5 (scores,
+        classes), and the fp32 logits when ``logits``."""
         th, tw = self.input_hw
         x = ((x - self._mean) / self._std).to(self.compute_dtype)
         x = x.reshape(b, self.config.sequence_length, th, tw, 3)
-        logits = self.net(x).to(torch.float32)
-        probs = torch.softmax(logits, dim=-1)
-        return torch.topk(probs, min(TOP_K, probs.shape[-1]), dim=-1)
+        out = self.net(x).to(torch.float32)
+        probs = torch.softmax(out, dim=-1)
+        scores, classes = torch.topk(probs, min(TOP_K, probs.shape[-1]), dim=-1)
+        return (scores, classes, out) if logits else (scores, classes)
 
-    def _step(self, clips_u8: torch.Tensor, resized: bool):
+    def _step(self, clips_u8: torch.Tensor, resized: bool, logits: bool = False):
         """clips_u8: [B, T, H, W, 3] uint8 BGR (H, W = input size when
         ``resized``)."""
         b, t_len = clips_u8.shape[:2]
@@ -194,29 +294,28 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
             x = stretch_unit_rgb(flat, self.input_hw, kernel,
                                  self.operands_for(flat.shape[1:3]) if kernel else None,
                                  self.mesh)
-        return self._clip_head(x, b)
+        return self._clip_head(x, b, logits)
 
-    def _run_bucket(self, bucket: int, clips: np.ndarray, resized: bool):
-        """Pad to ``bucket`` clips (repeating the last), run the step, bring
-        the top-5 back."""
-        n = clips.shape[0]
-        if n < bucket:
-            clips = np.concatenate([clips, np.repeat(clips[-1:], bucket - n, axis=0)])
+    def _run_bucket(self, bucket: int, clips: np.ndarray, resized: bool,
+                    logits: bool = False):
+        """Run the step on ``clips`` (packed to ``bucket``: ``_pack``) and
+        bring back the top-5 (scores, classes), and the logits when
+        ``logits``, as numpy."""
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            scores, classes = self._mesh_call(self._step, clips, resized)
-            scores, classes = scores.cpu().numpy(), classes.cpu().numpy()
+        with spans.span("clip_step"), torch.inference_mode():
+            extra = (True,) if logits else ()  # an exported step has no logits output
+            out = tuple(t.cpu().numpy() for t in self._mesh_call(self._step, clips, resized,
+                                                                 *extra))
         self.last_infer_ms = (time.perf_counter() - t0) * 1e3
-        return scores[:n], classes[:n]
+        return out
 
     def warmup(self, src_hw: Tuple[int, int], buckets=None) -> None:
         """Run the clip step once per bucket, then time it (min of 3), on
         the input ``predict_clips`` will upload."""
         buckets = buckets or self.config.resolved_buckets
         t_len = self.config.sequence_length
-        th, tw = self.input_hw
-        resized = self._host_resize_active() and tuple(src_hw) != (th, tw)
-        hw = (th, tw) if resized else tuple(src_hw)
+        resized = self._resizes(src_hw)
+        hw = tuple(self.input_hw) if resized else tuple(src_hw)
         costs = self._bucket_cost_ms.setdefault(tuple(src_hw), {})
         for b in buckets:
             rb = self._round_mesh(b)
@@ -271,6 +370,10 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
     def predict_packets(self, packets: Sequence[FramePacket]) -> List[List[Detection]]:
         """Buffer every packet; the clips that become ready run as one
         clip batch."""
+        with spans.engine_batch():
+            return self._predict_packets(packets)
+
+    def _predict_packets(self, packets: Sequence[FramePacket]) -> List[List[Detection]]:
         results: List[List[Detection]] = [[] for _ in packets]
         ready: List[Tuple[int, List[FramePacket]]] = []
         for i, p in enumerate(packets):
@@ -293,25 +396,44 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
         buf = self._buffers.get(stream_name)
         return len(buf) if buf else 0
 
-    def predict_clips(self, sequences: Sequence[List[FramePacket]]) -> List[List[Detection]]:
+    def predict_clips(self, sequences: Sequence[List[FramePacket]],
+                      return_logits: bool = False):
         """Batched inference over ready clips, grouped by frame shape (the
-        batcher's clip-coalescing path calls this directly)."""
+        batcher's clip-coalescing path calls this directly). Returns each
+        clip's detections and, with ``return_logits``, also the fp32 logits
+        [clips, classes] the step computed for them."""
+        with spans.engine_batch():
+            return self._predict_clips(sequences, return_logits)
+
+    def _predict_clips(self, sequences, return_logits: bool):
         by_shape: Dict[Tuple[int, int], List[int]] = {}
         for i, seq in enumerate(sequences):
             by_shape.setdefault(tuple(seq[0].frame.shape[:2]), []).append(i)
         results: List[List[Detection]] = [[] for _ in sequences]
+        logits = [None] * len(sequences)
         buckets = self.config.resolved_buckets
+        t_len = self.config.sequence_length
         for shape, idxs in by_shape.items():
-            clips = self._host_resize_clips(sequences, idxs, shape)
-            resized = clips is not None
-            if not resized:
-                clips = np.stack([np.stack([p.frame for p in sequences[i]]) for i in idxs])
+            n = len(idxs)
             # more clips than the largest bucket run unpadded, as in JAX
-            bucket = self._round_mesh(_cheapest_bucket(buckets, clips.shape[0],
+            bucket = self._round_mesh(_cheapest_bucket(buckets, n,
                                                        self._bucket_cost_ms.get(shape, {})))
-            scores, classes = self._run_bucket(bucket, clips, resized)
+            with spans.span("clip_pack"):
+                buf, resized = self._pack(sequences, idxs, shape, bucket)
+            clips = buf.numpy()[:max(n, bucket)]
+            try:
+                out = self._run_bucket(bucket, clips, resized, return_logits)
+            finally:
+                self._staging.give(buf)
+            self.stats.add(clips=n, frames=n * t_len, nbytes=clips.nbytes)
             for j, i in enumerate(idxs):
-                results[i] = self._to_detections(sequences[i], scores[j], classes[j])
+                results[i] = self._to_detections(sequences[i], out[0][j], out[1][j])
+                if return_logits:
+                    logits[i] = out[2][j]
+        self.stats.add(calls=1)
+        if return_logits:
+            return results, (np.stack(logits) if logits else
+                             np.zeros((0, self.config.num_action_classes), np.float32))
         return results
 
     def _to_detections(self, sequence: List[FramePacket], scores: np.ndarray,

@@ -98,7 +98,8 @@ def conv_bias_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     epilogue kernel does the rest in place on its (channels_last) output;
     else the conv takes its bias and SiLU and the add follow."""
     if fuses_epilogue(x, w, b, residual):
-        return conv_epilogue(conv2d(x, w, stride=stride, padding=padding), b, act, residual)
+        return conv_epilogue(conv2d(x, w, stride=stride, padding=padding), b,
+                             "silu" if act else None, residual)
     y = conv2d(x, w, b, stride=stride, padding=padding)
     y = silu(y) if act else y
     return y if residual is None else residual + y
@@ -180,7 +181,7 @@ class ConvAct(nn.Module):
         a = conv2d(x_small, w_a.to(x_small.dtype))
         w_b = w_b.to(y_skip.dtype)
         b = conv2d(y_skip, w_b)
-        b = (conv_epilogue(b, self.bias, False) if fuses_epilogue(y_skip, w_b, self.bias)
+        b = (conv_epilogue(b, self.bias, None) if fuses_epilogue(y_skip, w_b, self.bias)
              else b + self.bias.to(y_skip.dtype)[:, None, None])
         return silu(upsample2x(a) + b)
 

@@ -1,5 +1,8 @@
 """Temporal action-recognition models: CNN-LSTM, ConvGRU, 3D-CNN, SlowFast.
 
+(``build_temporal`` also builds ``slowfast_r50``, the published SlowFast R50
+of ``models/slowfast.py``, which has no JAX counterpart.)
+
 Counterpart of ``realtime_analytics_tpu/models/temporal.py``: the same
 widths, parameter names and arithmetic, so a JAX params tree maps onto
 these modules key by key (``weights.temporal_params_from_jax``). Every
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import ConvAct, Dense, load_param, max_pool, to_numpy
+from .slowfast import SlowFastR50, SlowFastSpec
 
 
 def _conv(cin: int, cout: int, k: int, s: int = 1) -> ConvAct:
@@ -251,4 +255,6 @@ def build_temporal(model_type: str, num_classes: int, pooling: str = "avg") -> n
         return CNN3D(num_classes=num_classes)
     if model_type == "slow_fast":
         return SlowFast(num_classes=num_classes)
+    if model_type == "slowfast_r50":
+        return SlowFastR50(SlowFastSpec(num_classes=num_classes))
     raise ValueError(f"unsupported temporal model_type: {model_type}")

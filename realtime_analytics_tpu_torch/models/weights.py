@@ -36,6 +36,12 @@ ResNet and the temporal models follow the same pattern:
 (``temporal_state_dict_from_params`` is the inverse of the last), and
 ``load_resnet_checkpoint`` / ``load_temporal_checkpoint`` read files.
 ``load_tree`` and ``module_tree`` walk any of the modules against its tree.
+
+SlowFast R50 (``models/slowfast.py``) reads PySlowFast's ``model_state``
+layout (``slowfast_params_from_state_dict``: every BatchNorm3d folded into
+its conv in fp32, eps 1e-5); ``slowfast_manifest`` lists that layout's keys
+and shapes for a spec and ``slowfast_seeded_state_dict`` fills it from a
+seed.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from torch import nn
 
 from .layers import ConvAct
 from .resnet import ResNetModel
+from .slowfast import SlowFastR50, SlowFastSpec, conv_names
 from .yolo import STRIDES, V5_ANCHORS, YoloModel
 
 logger = logging.getLogger(__name__)
@@ -363,7 +370,7 @@ def _read_state_dict(path: str) -> Optional[Mapping[str, np.ndarray]]:
                 for k, v in read_onnx_initializers(path).items()}
     obj = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(obj, dict):
-        for key in ("state_dict", "model"):
+        for key in ("state_dict", "model", "model_state"):
             if key in obj:
                 inner = obj[key]
                 if hasattr(inner, "state_dict"):
@@ -537,6 +544,8 @@ def temporal_params_from_state_dict(model: nn.Module, sd: Mapping[str, np.ndarra
         tree = {n: _t_conv3d(sd, n) for n in ("c1", "c2", "c3", "c4")}
         tree["fc"] = _t_dense(sd, "fc")
         return tree
+    if kind == "SlowFastR50":
+        return slowfast_params_from_state_dict(model, sd)
     if kind == "SlowFast":
         return {
             "slow": {f"c{j}": _t_conv3d(sd, f"slow.c{j}") for j in (1, 2, 3)},
@@ -604,7 +613,10 @@ def temporal_params_from_jax(model: nn.Module, tree: Mapping) -> nn.Module:
 
 
 def temporal_synthetic_params(model: nn.Module, seed: int = 0) -> Dict:
-    """Seeded He-scaled temporal weights (``_seeded_tree``)."""
+    """Seeded He-scaled temporal weights (``_seeded_tree``); SlowFast R50's
+    are ``slowfast_seeded_state_dict``'s, folded."""
+    if isinstance(model, SlowFastR50):
+        return slowfast_params_from_state_dict(model, slowfast_seeded_state_dict(model.spec, seed))
     return _seeded_tree(model, seed)
 
 
@@ -622,3 +634,110 @@ def load_temporal_checkpoint(model: nn.Module, path: str) -> Optional[Dict]:
     except Exception as exc:  # noqa: BLE001 — any unreadable file -> None
         logger.warning("Could not load temporal checkpoint %s: %s", path, exc)
         return None
+
+
+# ---------------------------------------------------------------------------
+# SlowFast R50: PySlowFast's model_state layout
+# ---------------------------------------------------------------------------
+
+BN_EPS_SLOWFAST = 1e-5  # PySlowFast's nn.BatchNorm3d (BN.EPSILON)
+# the seeded weights' scales (``slowfast_seeded_state_dict``)
+SEED_GAMMA = (0.8, 1.2)  # every BN but a bottleneck's last
+SEED_LAST_GAMMA = (0.2, 0.4)  # branch2.c_bn: the residual branch, live and bounded
+
+
+def slowfast_bn_name(conv: str) -> str:
+    """The BatchNorm3d that follows a conv in PySlowFast's layout:
+    ``x.conv`` -> ``x.bn`` (stems), ``x.conv_f2s`` -> ``x.bn`` (laterals),
+    ``...branch1`` -> ``...branch1_bn``, ``...branch2.a`` ->
+    ``...branch2.a_bn``."""
+    head, _, last = conv.rpartition(".")
+    return f"{head}.bn" if last in ("conv", "conv_f2s") else f"{conv}_bn"
+
+
+def slowfast_manifest(spec: SlowFastSpec = SlowFastSpec()) -> Dict[str, tuple]:
+    """Every key and shape of PySlowFast's ``model_state`` for ``spec``, in
+    its order."""
+    with torch.device("meta"):
+        model = SlowFastR50(spec)
+    mods = dict(model.named_modules())
+    out: Dict[str, tuple] = {}
+    for name in conv_names(model):
+        w = mods[name].weight
+        out[f"{name}.weight"] = tuple(w.shape)
+        bn = slowfast_bn_name(name)
+        for k in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{bn}.{k}"] = (w.shape[0],)
+        out[f"{bn}.num_batches_tracked"] = ()
+    out["head.projection.weight"] = (spec.num_classes, spec.features)
+    out["head.projection.bias"] = (spec.num_classes,)
+    return out
+
+
+def slowfast_seeded_state_dict(spec: SlowFastSpec = SlowFastSpec(), seed: int = 0,
+                               device="cpu") -> Dict[str, torch.Tensor]:
+    """A PySlowFast ``model_state`` for ``spec`` from ``seed``, fp32 on
+    ``device``, drawn from one ``torch.Generator`` (a normal and a uniform
+    over every element, split key by key):
+
+    * a conv's weight He-normal (std ``sqrt(2 / fan_in)``), so a conv and
+      ReLU keep their input's scale;
+    * a BN's running mean ``0.1 N``, running variance in [0.75, 1.25], beta
+      ``0.1 N``, gamma in ``SEED_GAMMA``, but a bottleneck's last
+      (``branch2.c_bn``, which PySlowFast's ``ZERO_INIT_FINAL_BN`` would zero)
+      in ``SEED_LAST_GAMMA``: each residual branch adds a third of its
+      shortcut's scale, so every branch and lateral counts and the scale
+      grows by a few times over the 16 blocks;
+    * the projection ``N / sqrt(features)``, its bias
+      ``0.1 N``: logits of a few units, no class taking the softmax whole.
+
+    The same seed gives the same state on one kind of device."""
+    manifest = slowfast_manifest(spec)
+    sizes = [int(np.prod(s)) for s in manifest.values()]
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    normal = torch.randn(sum(sizes), generator=gen, device=device)
+    uniform = torch.rand(sum(sizes), generator=gen, device=device)
+    sd: Dict[str, torch.Tensor] = {}
+    at = 0
+    for (key, shape), size in zip(manifest.items(), sizes):
+        n, u = normal[at:at + size].view(shape), uniform[at:at + size].view(shape)
+        at += size
+        if key.endswith("num_batches_tracked"):
+            sd[key] = torch.zeros((), dtype=torch.long, device=device)
+        elif key == "head.projection.weight":
+            sd[key] = n * (1.0 / np.sqrt(shape[1]))
+        elif key.endswith(".running_mean") or key.endswith(".bias"):
+            sd[key] = 0.1 * n
+        elif key.endswith(".running_var"):
+            sd[key] = 0.75 + 0.5 * u
+        elif key.endswith("_bn.weight") or key.endswith(".bn.weight"):
+            lo, hi = SEED_LAST_GAMMA if key.endswith(".c_bn.weight") else SEED_GAMMA
+            sd[key] = lo + (hi - lo) * u
+        else:  # a conv's weight
+            sd[key] = n * np.sqrt(2.0 / np.prod(shape[1:]))
+    return sd
+
+
+def _fold_conv3d_bn(sd, conv: str, eps: float = BN_EPS_SLOWFAST) -> Dict[str, np.ndarray]:
+    """A bias-free OIDHW conv and its BatchNorm3d -> {"w": DHWIO, "b"}, in fp32."""
+    w = _np(sd[f"{conv}.weight"]).astype(np.float32)
+    bn = slowfast_bn_name(conv)
+    gamma, beta, mean, var = (_np(sd[f"{bn}.{k}"]).astype(np.float32)
+                              for k in ("weight", "bias", "running_mean", "running_var"))
+    scale = gamma / np.sqrt(var + np.float32(eps))
+    return {"w": (w * scale[:, None, None, None, None]).transpose(2, 3, 4, 1, 0),
+            "b": beta - mean * scale}
+
+
+def slowfast_params_from_state_dict(model: SlowFastR50, sd: Mapping) -> Dict:
+    """PySlowFast's ``model_state`` (numpy or torch) -> ``model``'s params
+    tree, each conv's BN folded; a missing key raises ``KeyError``."""
+    tree: Dict = {}
+    for name in conv_names(model):
+        *path, last = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = _fold_conv3d_bn(sd, name)
+    tree["head"] = {"projection": _t_dense(sd, "head.projection")}
+    return tree

@@ -20,11 +20,18 @@ forward calls the epilogue once for each float conv, the bottlenecks'
 shortcuts inside it.
 (d) ``rva::conv_epilogue`` has its CPU and fake implementations, and an
 exported YOLO step keeps it as one node a conv.
+(e) The ReLU mode (``act="relu"``: bias, then the shortcut, then ReLU, as a
+ResNet bottleneck ends): the plain version is PyTorch's passes bit for bit
+on 4-d and 5-d (``channels_last_3d``) outputs, ``residual_stride`` reads
+5-d residuals, ``rva::conv_epilogue_relu`` has its CPU and fake forms, and
+a SlowFast R50 forward calls it once a conv, its 32 bottleneck shortcuts
+inside.
 
 On the card (``cuda`` marker; skipped elsewhere), run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_conv_epilogue.py``:
 the kernel bit-equal to PyTorch's passes at YOLOv8l's and YOLOv8n's b32
-shapes and in each instantiation, a misaligned output refused, the op equal
+shapes and in each instantiation, and in the ReLU mode at SlowFast R50's b32
+shapes (5-d) and in each instantiation, a misaligned output refused, the op equal
 to the wrapper and safe under capture, captured YOLOv8l and YOLOv8n b32
 steps with the epilogue against the same steps on PyTorch's passes (the
 same outputs, one launch for each float conv), and a YOLOv8n step exported
@@ -98,6 +105,7 @@ def make_case(c, dtype, residual, gen, shape=(2, 5, 7), device="cpu"):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_plain_is_the_two_pass_composition(dtype, act, residual, c):
     gen = torch.Generator().manual_seed(c + 7 * (residual is not None) + 3 * act)
+    act = "silu" if act else None
     y, bias, res = make_case(c, dtype, residual, gen)
     want = two_pass(y, bias, act, res)
     got = conv_epilogue_plain(y, bias, act, res)
@@ -268,7 +276,7 @@ def test_no_gradient_takes_the_epilogue(monkeypatch):
     conv, x = conv_case(gen, torch.bfloat16)
     res = torch.randn(x.shape, generator=gen).to(torch.bfloat16)
     got = conv(x, residual=res)
-    assert calls == [((2, 8, 6, 6), True, True)]
+    assert calls == [((2, 8, 6, 6), "silu", True)]
     want = two_pass(F.conv2d(x, conv.weight, padding=1), conv.bias, True, res)
     assert torch.equal(bits(got), bits(want))
     conv.weight.requires_grad_(True)  # a gradient that is not enabled
@@ -366,6 +374,126 @@ def test_exported_step_keeps_the_epilogue_as_one_node_a_conv(monkeypatch, tmp_pa
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
 
 
+# -- (e) the ReLU mode ----------------------------------------------------------
+
+
+def two_pass_relu(y, bias, residual=None):
+    """A ResNet conv on PyTorch's passes: the bias pass in place, the
+    bottleneck's ``y + shortcut``, ``F.relu``."""
+    y = y.clone()
+    y.add_(bias.reshape(1, -1, *([1] * (y.dim() - 2))))
+    if residual is not None:
+        y = y + residual
+    return F.relu(y)
+
+
+def make_case_nd(c, dtype, residual, gen, shape, device="cpu"):
+    """``make_case`` for a 4-d (channels_last) or 5-d (channels_last_3d)
+    output: ``shape`` is (n, h, w) or (n, d, h, w)."""
+    fmt = torch.channels_last_3d if len(shape) == 4 else torch.channels_last
+
+    def cl(ch, scale):
+        t = torch.randn(shape[0], ch, *shape[1:], generator=gen, device=device) * scale
+        return t.to(dtype).contiguous(memory_format=fmt)
+
+    y = cl(c, 4.0)
+    flat = y.movedim(1, -1).reshape(-1)
+    if flat.numel() >= 8:
+        flat[:5] = torch.tensor([float("inf"), -float("inf"), float("nan"), -0.0, -95.0],
+                                dtype=dtype, device=device)
+    bias = (torch.randn(c, generator=gen, device=device) * 2).to(dtype)
+    bias[:1] = 0.0  # a -0 + 0 stays in the ReLU's path
+    res = None
+    if residual == "full":
+        res = cl(c, 3.0)
+    elif residual == "slice":
+        res = cl(2 * c, 3.0).chunk(2, dim=1)[1]
+    return y, bias, res
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7), (2, 3, 5, 7)], ids=["4d", "5d"])
+@pytest.mark.parametrize("c", [80, 64, 13])
+@pytest.mark.parametrize("residual", [None, "full", "slice"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_plain_relu_is_the_two_pass_composition(dtype, residual, c, shape):
+    gen = torch.Generator().manual_seed(c + 5 * len(shape) + 7 * (residual is not None))
+    y, bias, res = make_case_nd(c, dtype, residual, gen, shape)
+    want = two_pass_relu(y, bias, res)
+    got = conv_epilogue_plain(y, bias, "relu", res)
+    assert got.dtype == dtype and got.shape == y.shape
+    assert torch.equal(bits(got), bits(want))
+    before = y.clone()
+    assert torch.equal(bits(conv_epilogue(y, bias, "relu", res)), bits(want))
+    assert torch.equal(bits(y), bits(before))
+    # the YOLO modes on a 5-d output: bias, SiLU, the add after it
+    for act in ("silu", None):
+        plain = conv_epilogue_plain(y, bias, act, res)
+        two = y.clone()
+        two.add_(bias.reshape(1, -1, *([1] * (y.dim() - 2))))
+        two = F.silu(two) if act else two
+        assert torch.equal(bits(plain), bits(two if res is None else res + two))
+
+
+def test_residual_stride_5d():
+    fmt = torch.channels_last_3d
+    y = torch.zeros(2, 16, 4, 3, 5).contiguous(memory_format=fmt)
+    wide = torch.zeros(2, 32, 4, 3, 5).contiguous(memory_format=fmt)
+    a, b = wide.chunk(2, dim=1)
+    assert residual_stride(y, y.clone()) == 16
+    assert residual_stride(y, a) == 32 and residual_stride(y, b) == 32
+    assert residual_stride(y, torch.zeros(2, 16, 4, 3, 5)) is None  # NCDHW
+    assert residual_stride(y, wide) is None
+    one = torch.zeros(4, 8, 1, 1, 1).contiguous(memory_format=fmt)
+    assert residual_stride(one, one.clone()) == 8
+
+
+def test_act_names():
+    y, bias, _ = make_case_nd(8, torch.float32, None, torch.Generator().manual_seed(1), (1, 2, 2))
+    for act in ("gelu", True, False):  # one spelling: None, "silu" or "relu"
+        with pytest.raises(ValueError, match="act must be"):
+            conv_epilogue(y, bias, act)
+
+
+def test_relu_op_cpu_and_fake():
+    gen = torch.Generator().manual_seed(9)
+    y, bias, res = make_case_nd(64, torch.bfloat16, "slice", gen, (2, 3, 5, 7))
+    got = torch.ops.rva.conv_epilogue_relu(y, bias, res)
+    assert torch.equal(bits(got), bits(two_pass_relu(y, bias, res)))
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode() as mode:
+        out = torch.ops.rva.conv_epilogue_relu(mode.from_tensor(y), mode.from_tensor(bias), None)
+        assert out.shape == y.shape and out.dtype == y.dtype
+        assert out.is_contiguous(memory_format=torch.channels_last_3d)
+    # through the registered ops (an exported step): the relu op
+    with _cuda.through_ops():
+        assert torch.equal(bits(conv_epilogue(y, bias, "relu", res)), bits(got))
+
+
+def test_slowfast_forward_calls_the_relu_epilogue_once_a_conv(monkeypatch):
+    """SlowFast R50 at the published depths (slow width 16): 110 convs, each
+    with its BN folded, one epilogue each: 2 stems and 4 laterals and 64
+    bottleneck convs before the last with ReLU, 32 bottleneck ends adding
+    their shortcut before it, 8 projections without."""
+    from realtime_analytics_tpu_torch.models import slowfast
+
+    monkeypatch.setattr(slowfast, "fuses_epilogue", cpu_route)
+    calls = []
+
+    def spy(y, bias, act, residual=None):
+        calls.append((act, residual is not None, y.dim()))
+        return conv_epilogue(y, bias, act, residual)
+
+    monkeypatch.setattr(slowfast, "conv_epilogue", spy)
+    model = slowfast.SlowFastR50(slowfast.SlowFastSpec(width=16)).eval()
+    with torch.no_grad():
+        model(torch.zeros(1, 8, 32, 32, 3))
+    assert len(calls) == 110 and all(d == 5 for *_, d in calls)
+    assert sum(a == "relu" and r for a, r, _ in calls) == 32
+    assert sum(a == "relu" and not r for a, r, _ in calls) == 70
+    assert sum(a is None for a, r, _ in calls) == 8
+
+
 # -- on the card ----------------------------------------------------------------
 
 
@@ -412,7 +540,7 @@ def test_kernel_bit_equal_to_the_two_passes(card, shape, c, dtype, act, residual
     assert epilogue_instantiation(dtype, c, True, s) == inst
     want = two_pass(y, bias, act, res)
     before = _cuda.LAUNCHES.snapshot()["conv_epilogue"]
-    got = conv_epilogue(y, bias, act, res)
+    got = conv_epilogue(y, bias, "silu" if act else None, res)
     torch.cuda.synchronize()
     assert got.data_ptr() == y.data_ptr()  # in place
     assert _cuda.LAUNCHES.snapshot()["conv_epilogue"] == before + 1
@@ -426,7 +554,7 @@ def test_kernel_refuses_a_misaligned_output(card, dtype):
     y = wide[1:].view(3, 6, 5, 16).permute(0, 3, 1, 2)  # channels_last, 2 or 4 bytes off
     before = _cuda.LAUNCHES.snapshot()["conv_epilogue"]
     with pytest.raises(ValueError, match="16-byte aligned"):
-        conv_epilogue(y, torch.zeros(16, device=card, dtype=dtype), True)
+        conv_epilogue(y, torch.zeros(16, device=card, dtype=dtype), "silu")
     assert _cuda.LAUNCHES.snapshot()["conv_epilogue"] == before
 
 
@@ -436,7 +564,7 @@ def test_kernel_takes_another_layout_through_a_copy(card):
     y = (torch.randn(2, 64, 9, 11, generator=gen, device=card) * 3).to(torch.bfloat16)
     bias = torch.randn(64, generator=gen, device=card).to(torch.bfloat16)
     want = two_pass(y, bias, True)
-    got = conv_epilogue(y, bias, True)  # NCHW: copied to channels_last, then in place
+    got = conv_epilogue(y, bias, "silu")  # NCHW: copied to channels_last, then in place
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(bits(got), bits(want))
 
@@ -456,11 +584,11 @@ def test_op_equals_the_wrapper_and_captures(card):
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        conv_epilogue(buf.copy_(y), bias, True, res)
+        conv_epilogue(buf.copy_(y), bias, "silu", res)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        conv_epilogue(buf.copy_(y), bias, True, res)
+        conv_epilogue(buf.copy_(y), bias, "silu", res)
     buf.zero_()
     graph.replay()
     torch.cuda.synchronize()
@@ -561,3 +689,78 @@ def test_card_export_keeps_the_epilogue_a_conv(card, tmp_path):
         assert _cuda.LAUNCHES.snapshot()["conv_epilogue"] == 61
     for f in ("boxes_xyxy", "scores", "class_ids", "num_valid"):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+# SlowFast R50 8x8 at b32, 224 (sf50-clips-b32's step), ReLU mode: the slow
+# and fast stems (before their pools), a slow res2 and a fast res2
+# bottleneck end with their shortcut, a res4 a-conv, a lateral, res5's end;
+# then a projection (no activation) on 5-d, fp32, 13 channels (flat16) and
+# a chunk residual
+SLOWFAST_CARD_CASES = [
+    ((32, 8, 112, 112), 64, torch.bfloat16, "relu", None, "vec16"),
+    ((32, 32, 112, 112), 8, torch.bfloat16, "relu", None, "vec16"),
+    ((32, 8, 56, 56), 256, torch.bfloat16, "relu", "full", "vec16"),
+    ((32, 32, 56, 56), 32, torch.bfloat16, "relu", "full", "vec16"),
+    ((32, 8, 14, 14), 256, torch.bfloat16, "relu", None, "vec16"),
+    ((32, 8, 56, 56), 16, torch.bfloat16, "relu", None, "vec16"),
+    ((32, 8, 7, 7), 2048, torch.bfloat16, "relu", "full", "vec16"),
+    ((32, 8, 28, 28), 512, torch.bfloat16, None, None, "vec16"),
+    ((4, 8, 14, 14), 64, torch.float32, "relu", "full", "vec16"),
+    ((3, 5, 17, 9), 13, torch.bfloat16, "relu", "slice", "flat16"),
+    ((3, 5, 17, 9), 13, torch.float32, "relu", "full", "flat16"),
+    ((2, 4, 9, 11), 64, torch.bfloat16, "relu", "slice", "vec16"),
+    ((2, 9, 11), 64, torch.bfloat16, "relu", "full", "vec16"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c,dtype,act,residual,inst", SLOWFAST_CARD_CASES)
+def test_relu_kernel_bit_equal_to_the_passes(card, shape, c, dtype, act, residual, inst):
+    gen = torch.Generator(device=card).manual_seed(c + shape[-1])
+    y, bias, res = make_case_nd(c, dtype, residual, gen, shape, card)
+    s = None if res is None else residual_stride(y, res)
+    assert epilogue_instantiation(dtype, c, True, s) == inst
+    if act == "relu":
+        want = two_pass_relu(y, bias, res)
+    else:
+        want = y.clone()
+        want.add_(bias.reshape(1, -1, 1, 1, 1))
+    before = _cuda.LAUNCHES.snapshot()["conv_epilogue"]
+    got = conv_epilogue(y, bias, act, res)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == y.data_ptr()
+    assert _cuda.LAUNCHES.snapshot()["conv_epilogue"] == before + 1
+    assert torch.equal(bits(got), bits(want))
+
+
+@pytest.mark.cuda
+def test_relu_op_equals_the_wrapper_on_the_card(card):
+    gen = torch.Generator(device=card).manual_seed(8)
+    y, bias, res = make_case_nd(64, torch.bfloat16, "full", gen, (4, 8, 14, 14), card)
+    want = two_pass_relu(y, bias, res)
+    out = torch.ops.rva.conv_epilogue_relu(y, bias, res)
+    assert out.data_ptr() != y.data_ptr()
+    assert torch.equal(bits(out), bits(want))
+
+
+@pytest.mark.cuda
+def test_slowfast_forward_equals_the_passes(card, monkeypatch):
+    """The published SlowFast R50 in bf16 on 4 clips of 32 x 224 x 224 with
+    seeded weights: one epilogue launch a conv (110), and the logits of the
+    forward on PyTorch's passes bit for bit."""
+    from realtime_analytics_tpu_torch.models import slowfast, weights
+
+    model = slowfast.SlowFastR50().eval()
+    sd = weights.slowfast_seeded_state_dict(model.spec, seed=3, device=card)
+    weights.temporal_params_from_jax(model, weights.slowfast_params_from_state_dict(model, sd))
+    model = model.to(card, torch.bfloat16)
+    gen = torch.Generator(device=card).manual_seed(4)
+    x = torch.randn(4, 32, 224, 224, 3, generator=gen, device=card).to(torch.bfloat16)
+    with torch.inference_mode():
+        _cuda.LAUNCHES.reset()
+        got = model(x)
+        assert _cuda.LAUNCHES.snapshot()["conv_epilogue"] == 110
+        monkeypatch.setattr(slowfast, "fuses_epilogue", lambda *a: False)
+        want = model(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
