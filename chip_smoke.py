@@ -41,7 +41,10 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
    CUDA events next to its plain version, the one PyTorch call that computes
    the same function where there is one, and its bound (the larger of bytes
    over 3.35 TB/s and operations over the dtype's dense peak, H100 SXM data
-   sheet);
+   sheet); SlowFast R50's two 3-channel stems at b32, each alone as cuDNN's
+   conv3d and as the 2D conv over stacked frames the model runs on the card
+   (their times, kernels and agreement), and the b32 forward on each route
+   in turns (``check_slowfast_stems``);
 4. the main path: ``TorchYoloEngine`` (YOLOv8n, 640, bf16, bucket 32,
    seeded He-scaled weights) on 32 synthetic 1080p frames through
    ``predict_arrays`` (host pick -> selected step), held against the same
@@ -930,6 +933,74 @@ def check_epilogue_relu(gen):
     out = dict(rows, sf50_b32_step=dict(step, instantiations=dict(step["instantiations"])),
                card=CARD)
     log("B7 relu " + json.dumps(out))
+    return out
+
+
+def check_slowfast_stems(gen):
+    """SlowFast R50's two 3-channel stems at b32 (the clip cell's shapes:
+    32 clips of 32 frames at 224, bf16), each alone in both forms: cuDNN's
+    conv3d, and the 2D conv over stacked frames the model runs on the card
+    (``FoldedConv3d.conv``: the slow stem in rows of 1 frame, the fast stem
+    of 4), each with its kernels' names; then the published forward at b32
+    with seeded weights, timed on the device with the stems on each route
+    in turns (conv3d, stacked, stacked, conv3d), the stacked convs it counts
+    and the logits' ``logit_err`` between the routes."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from realtime_analytics_tpu_torch.models import slowfast, weights
+
+    def kernel_names(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sorted({e.key[:80] for e in prof.key_averages()
+                       if getattr(e, "self_device_time_total", 0) > 0})
+
+    model = slowfast.SlowFastR50().eval()
+    sd = weights.slowfast_seeded_state_dict(model.spec, seed=3, device="cuda")
+    weights.temporal_params_from_jax(model, weights.slowfast_params_from_state_dict(model, sd))
+    model = model.to("cuda", torch.bfloat16)
+    del sd
+    clips = torch.randn(N, 32, 224, 224, 3, generator=gen, device="cuda").to(torch.bfloat16)
+    x = clips.permute(0, 4, 1, 2, 3)
+    out = dict(card=CARD)
+    for name, conv, xin in (("slow", model.s1.pathway0_stem.conv, model.slow_frames(x)),
+                            ("fast", model.s1.pathway1_stem.conv, x)):
+        group = conv.stack_group(xin)
+        assert group, f"the {name} stem does not take the stacked route"
+        conv3d = lambda conv=conv, xin=xin: F.conv3d(xin, conv.weight, None, conv.stride,
+                                                      conv.padding)
+        stacked = lambda conv=conv, xin=xin: conv.conv(xin)
+        want, got = conv3d().float(), stacked().float()
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        assert err < 2 ** -6, f"the stacked {name} stem disagrees: {err}"
+        out[f"{name}_stem"] = dict(
+            input=list(xin.shape), weight=list(conv.weight.shape), group=group,
+            stacked_weight=list(conv.stacked_weight(group).shape), rel_err=err,
+            conv3d_ms=cuda_ms(conv3d, iters=20), stacked_ms=cuda_ms(stacked, iters=20),
+            conv3d_kernels=kernel_names(conv3d), stacked_kernels=kernel_names(stacked))
+        del want, got
+    step, logits = {"conv3d": [], "stacked": []}, {}
+    three_d = lambda self, t: 0
+    for route in ("conv3d", "stacked", "stacked", "conv3d"):
+        with contextlib.ExitStack() as stack:
+            if route == "conv3d":
+                stack.callback(setattr, slowfast.FoldedConv3d, "stack_group",
+                               slowfast.FoldedConv3d.stack_group)
+                slowfast.FoldedConv3d.stack_group = three_d
+            before = slowfast.stacked_convs(model)
+            logits[route] = model(clips).float()
+            assert slowfast.stacked_convs(model) - before == (2 if route == "stacked" else 0)
+            step[route].append(cuda_ms(lambda: model(clips), iters=10, warmup=2))
+    want, got = logits["conv3d"], logits["stacked"]
+    out["sf50_b32_step_ms"] = step
+    out["logit_err_pct"] = ((got - want).abs().amax(1) / want.std(1)).max().item() * 100
+    log("slowfast stems " + json.dumps(out))
+    del model, clips, x, logits
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3860,6 +3931,7 @@ def main() -> int:
         kernels = [check_gather(gen), check_decode(gen), check_stem(gen),
                    check_letterbox(gen), check_nms_keep(gen), check_epilogue(gen)]
         check_epilogue_relu(gen)
+        check_slowfast_stems(gen)
         torch.cuda.synchronize()
     torch.cuda.empty_cache()
 

@@ -37,8 +37,9 @@ Tracing (``telemetry/spans.py``; on while a profiler records): a
 and the padding to the bucket) and a ``clip_step`` span (the upload, the
 forward, the top-5 and logits coming back). ``stats`` (``ClipStats``)
 counts calls, clips, the clips' frames packed on the host and the bytes
-uploaded, always. ``predict_clips(..., return_logits=True)`` also returns
-the fp32 logits the step computed, clip by clip.
+uploaded, always, and the model's convs run as stacked 2D convs
+(``models/slowfast.py``). ``predict_clips(..., return_logits=True)`` also
+returns the fp32 logits the step computed, clip by clip.
 
 The pack writes a call's clips into the engine's reused staging buffers
 (``ClipStaging``), pinned on the card up to ``PIN_BYTES`` an engine.
@@ -59,6 +60,7 @@ import torch
 from ..config import ConfigError, DetectorConfig
 from ..models.onnx_graph_model import graph_dtype, load_graph_fallback
 from ..models.resnet import IMAGENET_MEAN, IMAGENET_STD
+from ..models.slowfast import stacked_convs
 from ..models.temporal import build_temporal
 from ..models.weights import (
     load_temporal_checkpoint,
@@ -92,12 +94,15 @@ PIN_BYTES = 256 << 20  # an engine's staging buffers pinned in host memory, at m
 class ClipStats:
     """The engine's counters: ``predict_clips`` calls, clips served (no
     padding), their frames packed on the host (clips x T), and the bytes of
-    the clip arrays uploaded (padding included)."""
+    the clip arrays uploaded (padding included); ``stacked_convs``, the
+    model's convs run as 2D convs over stacked frames so far, warmup
+    included (``models/slowfast.py``: the two stems a step on the card)."""
 
     calls: int = 0
     clips: int = 0
     frames_packed: int = 0
     bytes_uploaded: int = 0
+    stacked_convs: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
 
     def add(self, calls: int = 0, clips: int = 0, frames: int = 0, nbytes: int = 0) -> None:
@@ -278,6 +283,7 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
         x = ((x - self._mean) / self._std).to(self.compute_dtype)
         x = x.reshape(b, self.config.sequence_length, th, tw, 3)
         out = self.net(x).to(torch.float32)
+        self.stats.stacked_convs = stacked_convs(self.model)
         probs = torch.softmax(out, dim=-1)
         scores, classes = torch.topk(probs, min(TOP_K, probs.shape[-1]), dim=-1)
         return (scores, classes, out) if logits else (scores, classes)

@@ -39,10 +39,28 @@ Every conv runs as cuDNN's ``conv3d`` without its bias on
 (``ops/epilogue.py``, ``act="relu"``) then adds the folded bias, the
 bottleneck's shortcut and the ReLU in place. Elsewhere (the CPU, a
 gradient) the conv takes its bias and the add and ReLU follow.
+
+The two stems take 3 channels. For a bf16 ``channels_last_3d`` conv3d of 3
+channels (or of 3 padded to 4 or 8) cuDNN has no good plan: the slow stem
+(1x7x7) falls to an fp32 NCHW CUDA-core conv between two layout
+conversions, and the fast stem (5x7x7 to 8 channels) to a tensor-core
+kernel whose 8 output channels fill a quarter of its tile. So on the card
+a conv whose input channels are not a multiple of 8 (bf16 or fp16, no
+gradient, temporal stride 1) runs as a 2D conv over stacked frames
+(``stack_frames``): a row of the 2D input holds, in its channels, the
+frames that ``group`` consecutive output frames read, and the 2D weight
+(``FoldedConv3d.stacked_weight``: ``group x cout`` output channels, zero
+columns for the frames outside each output frame's taps; made on first use,
+not a parameter or a buffer) gives those ``group`` frames at once. The slow
+stem is then a 2D conv over its N x 8 frames (group 1), the fast stem one
+of 24 channels (8 frames) to 32 (4 output frames): the same sums of the
+same bf16 products, accumulated in fp32 and rounded once, on cutlass
+tensor-core kernels. ``stacked_convs`` counts those calls.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -98,6 +116,42 @@ class SlowFastSpec:
         return out + out // self.beta_inv
 
 
+STACK_DTYPES = (torch.bfloat16, torch.float16)
+STACK_COLS = 32  # output channels a stacked row fills at least: cuDNN's narrowest tile
+_COUNT = threading.Lock()  # guards every FoldedConv3d's ``stacked_calls``
+
+
+def stack_frames(x: torch.Tensor, kt: int, group: int) -> torch.Tensor:
+    """The 2D input of a conv of temporal kernel ``kt`` (stride 1, padding
+    kt // 2) over ``x`` [N, C, T, H, W]: [N * T / group, span * C, H, W],
+    ``channels_last``, span = kt + group - 1; row (n, g) holds frames
+    ``group * g - kt // 2`` and the span - 1 after it (zero outside the
+    clip), frame-major. A view where span is 1 and ``x`` is
+    ``channels_last_3d``; else the clip padded in time, then the rows
+    gathered from it."""
+    n, c, t, h, w = x.shape
+    span = kt + group - 1
+    frames = x.permute(0, 2, 3, 4, 1)  # [N, T, H, W, C]
+    if span > 1:
+        p = kt // 2
+        frames = F.pad(frames, (0, 0, 0, 0, 0, 0, p, p))
+        s = frames.stride()
+        frames = frames.as_strided((n, t // group, h, w, span, c),
+                                   (s[0], group * s[1], s[2], s[3], s[1], s[4]))
+    return frames.reshape(n * t // group, h, w, span * c).permute(0, 3, 1, 2)
+
+
+def unstack_frames(y: torch.Tensor, n: int, group: int) -> torch.Tensor:
+    """A stacked 2D conv's output [N * T / group, group * cout, Ho, Wo]
+    (``channels_last``) as the 3D conv's [N, cout, T, Ho, Wo],
+    ``channels_last_3d``: a view for group 1, else one copy."""
+    rows, cols, ho, wo = y.shape
+    cout = cols // group
+    y = y.permute(0, 2, 3, 1).reshape(n, rows // n, ho, wo, group, cout)
+    y = y.permute(0, 1, 4, 2, 3, 5).contiguous().view(n, rows // n * group, ho, wo, cout)
+    return y.permute(0, 4, 1, 2, 3)
+
+
 def slow_indices(t_len: int, alpha: int) -> List[int]:
     """The slow pathway's frames of a clip of ``t_len`` (PySlowFast's
     ``torch.linspace(0, T - 1, T // alpha).long()``)."""
@@ -106,7 +160,9 @@ def slow_indices(t_len: int, alpha: int) -> List[int]:
 
 class FoldedConv3d(nn.Module):
     """A conv (OIDHW weight, ``channels_last_3d``) with its BN folded into
-    ``weight`` and ``bias``. Params-tree node: {"w": DHWIO, "b": [cout]}."""
+    ``weight`` and ``bias``. Params-tree node: {"w": DHWIO, "b": [cout]}.
+    On the card an input of misaligned channels runs as a 2D conv over
+    stacked frames (``stack_group``); ``stacked_calls`` counts those."""
 
     def __init__(self, cin: int, cout: int, kernel: Tuple[int, int, int],
                  stride: Tuple[int, int, int] = (1, 1, 1)):
@@ -115,6 +171,51 @@ class FoldedConv3d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
         self.stride = stride
         self.padding = tuple(k // 2 for k in kernel)
+        self.stacked_calls = 0
+        self._stacked: Optional[Tuple[tuple, torch.Tensor]] = None  # (key, 2D weight)
+
+    def stack_group(self, x: torch.Tensor) -> int:
+        """The output frames a row of the stacked 2D conv gives (the
+        smallest power of two whose output channels fill ``STACK_COLS``,
+        dividing T), or 0 where the conv of ``x`` stays cuDNN's conv3d: on
+        the CPU, in fp32, under a gradient, a temporal stride, or input
+        channels that are a multiple of 8."""
+        if (x.shape[1] % 8 == 0 or x.device.type != "cuda" or x.dtype not in STACK_DTYPES
+                or self.stride[0] != 1 or torch.is_grad_enabled()):
+            return 0
+        group = 1
+        while group * self.weight.shape[0] < STACK_COLS and x.shape[2] % (2 * group) == 0:
+            group *= 2
+        return group
+
+    def stacked_weight(self, group: int) -> torch.Tensor:
+        """The stacked 2D conv's weight [group * cout, span * cin, kh, kw]
+        (``stack_frames``), ``channels_last``: output frame f's block of
+        rows holds tap k of the 3D weight at frame f + k, zeros elsewhere.
+        Kept until the weight changes: another tensor, or one written in
+        place (an inference tensor keeps no count of that). Made in the graph
+        while traced for export."""
+        w = self.weight
+        if torch.compiler.is_compiling():
+            return _stack_weight(w, group)
+        key = (group, w.device, w.dtype, w.data_ptr(), None if w.is_inference() else w._version)
+        if self._stacked is None or self._stacked[0] != key:
+            self._stacked = (key, _stack_weight(w.detach(), group))
+        return self._stacked[1]
+
+    def conv(self, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """cuDNN's conv of ``x`` (and ``bias``): conv3d, or the stacked 2D
+        conv where ``stack_group`` gives a group, its bias added after it as
+        PyTorch's cuDNN route adds a conv's."""
+        group = self.stack_group(x)
+        if not group:
+            return F.conv3d(x, self.weight, bias, self.stride, self.padding)
+        y = F.conv2d(stack_frames(x, self.weight.shape[2], group), self.stacked_weight(group),
+                     None, self.stride[1:], self.padding[1:])
+        y = unstack_frames(y, x.shape[0], group)
+        with _COUNT:
+            self.stacked_calls += 1
+        return y if bias is None else y.add_(bias.reshape(1, -1, 1, 1, 1))
 
     def forward(self, x: torch.Tensor, relu: bool = True,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -122,9 +223,8 @@ class FoldedConv3d(nn.Module):
         false, which no residual takes)."""
         w, b = self.weight, self.bias
         if fuses_epilogue(x, w, b, residual):
-            y = F.conv3d(x, w, None, self.stride, self.padding)
-            return conv_epilogue(y, b, "relu" if relu else None, residual)
-        y = F.conv3d(x, w, b, self.stride, self.padding)
+            return conv_epilogue(self.conv(x), b, "relu" if relu else None, residual)
+        y = self.conv(x, b)
         if residual is not None:
             y = residual + y
         return F.relu(y) if relu else y
@@ -138,6 +238,15 @@ class FoldedConv3d(nn.Module):
     def to_tree(self) -> Dict[str, np.ndarray]:
         return {"w": to_numpy(self.weight).transpose(2, 3, 4, 1, 0).copy(),
                 "b": to_numpy(self.bias)}
+
+
+def _stack_weight(w: torch.Tensor, group: int) -> torch.Tensor:
+    cout, cin, kt, kh, kw = w.shape
+    out = w.new_zeros(group, cout, kh, kw, kt + group - 1, cin)
+    taps = w.permute(0, 3, 4, 2, 1)  # [cout, kh, kw, kt, cin]
+    for f in range(group):
+        out[f, :, :, :, f:f + kt] = taps
+    return out.reshape(group * cout, kh, kw, -1).permute(0, 3, 1, 2)
 
 
 class Stem(nn.Module):
@@ -249,13 +358,14 @@ class SlowFastR50(nn.Module):
         self._slow_idx: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
     def slow_frames(self, x: torch.Tensor) -> torch.Tensor:
-        """The slow pathway's frames of ``x`` [N, C, T, H, W]."""
+        """The slow pathway's frames of ``x`` [N, C, T, H, W], in
+        ``channels_last_3d``."""
         key = (x.shape[2], x.device)
         idx = self._slow_idx.get(key)
         if idx is None:
             idx = self._slow_idx[key] = torch.tensor(
                 slow_indices(x.shape[2], self.spec.alpha), device=x.device)
-        return x.index_select(2, idx)
+        return x.permute(0, 2, 3, 4, 1).index_select(1, idx).permute(0, 4, 1, 2, 3)
 
     def forward(self, clips: torch.Tensor) -> torch.Tensor:
         """clips: [N, T, H, W, 3] (T a multiple of alpha) -> logits [N,
@@ -267,6 +377,11 @@ class SlowFastR50(nn.Module):
             slow = getattr(self, f"s{stage + 1}_fuse")(slow, fast)
             slow, fast = getattr(self, f"s{stage + 2}")(slow, fast)
         return self.head(slow, fast)
+
+
+def stacked_convs(model: nn.Module) -> int:
+    """The calls of ``model``'s folded convs that ran as stacked 2D convs."""
+    return sum(m.stacked_calls for m in model.modules() if isinstance(m, FoldedConv3d))
 
 
 def conv_names(model: SlowFastR50) -> List[str]:

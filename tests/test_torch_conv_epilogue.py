@@ -36,7 +36,9 @@ to the wrapper and safe under capture, captured YOLOv8l and YOLOv8n b32
 steps with the epilogue against the same steps on PyTorch's passes (the
 same outputs, one launch for each float conv), and a YOLOv8n step exported
 on the card with one epilogue node a conv, served equal to the live
-engine.
+engine; SlowFast R50's stems as 2D convs over stacked frames against
+cuDNN's conv3d route (``models/slowfast.py``), at the small and the
+published spec.
 """
 
 import numpy as np
@@ -764,3 +766,61 @@ def test_slowfast_forward_equals_the_passes(card, monkeypatch):
         want = model(x)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# the logits of the stems' two routes, as the benchmark's logit_err (%): both
+# are bf16 forwards that differ in the stems' fp32 summation order, so they
+# sit closer to each other than either does to fp32 (sound runs read up to
+# 1.79% against the plain fp32 reference)
+STACKED_LOGIT_TOL = 1.8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["small", "published"])
+def test_slowfast_stacked_stems_equal_the_3d_route(card, monkeypatch, spec):
+    """SlowFast R50 in bf16 at b2 (the small spec at 64 x 64; the published
+    one at 224 x 224): every conv whose input channels are not a multiple of
+    8 runs as a 2D conv over stacked frames, and the count says so; at the
+    published widths that is the two stems and no other conv (the slow stem
+    in rows of 1 frame, the fast stem of 4), while the small spec's fast
+    pathway (2 channels at its stem) takes more. Each stem's output is
+    within two bf16 roundings of cuDNN's conv3d route, the logits within
+    ``STACKED_LOGIT_TOL``; the weights keep their published shape."""
+    from realtime_analytics_tpu_torch.models import slowfast, weights
+
+    small = slowfast.SlowFastSpec(depths=(1, 1, 1, 1), width=16)
+    sf_spec, hw = (small, 64) if spec == "small" else (slowfast.SlowFastSpec(), 224)
+    model = slowfast.SlowFastR50(sf_spec).eval()
+    sd = weights.slowfast_seeded_state_dict(sf_spec, seed=5, device=card)
+    weights.temporal_params_from_jax(model, weights.slowfast_params_from_state_dict(model, sd))
+    model = model.to(card, torch.bfloat16)
+    stems = [model.s1.pathway0_stem.conv, model.s1.pathway1_stem.conv]
+    shapes = [tuple(c.weight.shape) for c in stems]
+    outs, groups = {}, {}
+
+    def keep(mod, args, out):
+        outs.setdefault(mod, []).append(out.float())
+        groups.setdefault(mod, []).append(mod.stack_group(args[0]))
+
+    for mod in model.modules():
+        if isinstance(mod, slowfast.FoldedConv3d):
+            mod.register_forward_hook(keep)
+    gen = torch.Generator(device=card).manual_seed(6)
+    x = torch.randn(2, 32, hw, hw, 3, generator=gen, device=card).to(torch.bfloat16)
+    with torch.inference_mode():
+        got = model(x).float()
+        stacked = {m: g[0] for m, g in groups.items() if g[0]}
+        assert slowfast.stacked_convs(model) == len(stacked)
+        assert all(stem in stacked for stem in stems)
+        if spec == "published":
+            assert list(stacked.values()) == [1, 4] and list(stacked) == stems
+        monkeypatch.setattr(slowfast.FoldedConv3d, "stack_group", lambda self, t: 0)
+        want = model(x).float()
+    assert slowfast.stacked_convs(model) == len(stacked)
+    assert [tuple(c.weight.shape) for c in stems] == shapes and all(s[1] == 3 for s in shapes)
+    for stem in stems:
+        stacked_out, plain = outs[stem]
+        torch.testing.assert_close(stacked_out, plain, rtol=2 ** -6,
+                                   atol=2 ** -7 * plain.abs().max().item())
+    err = ((got - want).abs().amax(1) / want.std(1)).max().item() * 100
+    assert err < STACKED_LOGIT_TOL, f"logit_err {err:.3f}%"

@@ -22,6 +22,11 @@ in %, the benchmark check's measure.
   through ``float8_e4m3fn`` (the next precision below bf16; readings
   19-24%), and the program with its four laterals zeroed (the slow pathway
   without the fast one's; readings over 100%).
+
+The stems' stacked route (each a 2D conv over stacked frames, its weight
+with zero columns) runs only on the card; here its parts are called
+directly in fp32 and held to conv3d within 1e-6 of the output's scale, and
+the CPU forward takes the route nowhere.
 """
 
 import os
@@ -49,6 +54,9 @@ from realtime_analytics_tpu_torch.models.slowfast import (  # noqa: E402
     SlowFastSpec,
     conv_names,
     slow_indices,
+    stack_frames,
+    stacked_convs,
+    unstack_frames,
 )
 from realtime_analytics_tpu_torch.models.temporal import build_temporal  # noqa: E402
 from realtime_analytics_tpu_torch.telemetry import spans  # noqa: E402
@@ -148,6 +156,87 @@ def test_bn_folding_equals_bn_in_eval_mode(seeded, conv):
     with torch.no_grad():
         got = folded(x, relu=False)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("stem,frames", [("pathway0_stem", 8), ("pathway1_stem", 8),
+                                         ("pathway0_stem", 4), ("pathway1_stem", 4)])
+def test_stacked_stem_equals_the_3d_conv(seeded, stem, frames, group):
+    """A stem's conv as the 2D conv over stacked frames (its input
+    ``stack_frames``, its weight ``stacked_weight``: ``group`` output frames
+    a row) equals cuDNN's route, conv3d, in fp32 within 1e-6 of the output's
+    scale, on a stem-shaped and a 4-frame input; the weight keeps its
+    published shape."""
+    conv = getattr(program(seeded[0]).s1, stem).conv
+    kt = conv.weight.shape[2]
+    gen = torch.Generator().manual_seed(frames)
+    x = torch.randn(2, 3, frames, 32, 32, generator=gen).contiguous(
+        memory_format=torch.channels_last_3d)
+    with torch.no_grad():
+        want = torch.nn.functional.conv3d(x, conv.weight, None, conv.stride, conv.padding)
+        rows = stack_frames(x, kt, group)
+        assert rows.shape == (2 * frames // group, 3 * (kt + group - 1), 32, 32)
+        assert rows.is_contiguous(memory_format=torch.channels_last)
+        y = torch.nn.functional.conv2d(rows, conv.stacked_weight(group), None,
+                                       conv.stride[1:], conv.padding[1:])
+        got = unstack_frames(y, 2, group)
+    assert got.is_contiguous(memory_format=torch.channels_last_3d)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * want.abs().max().item())
+    assert conv.weight.shape[1] == 3
+    assert conv.stacked_weight(group).shape == (group * conv.weight.shape[0],
+                                                3 * (kt + group - 1), 7, 7)
+
+
+def test_stacked_weight_has_zero_columns_and_follows_the_weight(seeded):
+    """Output frame f's rows hold tap k at frame f + k and zeros elsewhere;
+    the 2D weight is made once, and again when the weight changes (in place
+    or replaced)."""
+    conv = program(seeded[0]).s1.pathway1_stem.conv
+    cout = conv.weight.shape[0]
+    first = conv.stacked_weight(4)
+    assert conv.stacked_weight(4) is first
+    blocks = first.view(4, cout, 8, 3, 7, 7)
+    for f in range(4):
+        for j in range(8):
+            want = conv.weight[:, :, j - f] if 0 <= j - f < 5 else torch.zeros(cout, 3, 7, 7)
+            assert torch.equal(blocks[f, :, j], want)
+    with torch.no_grad():
+        conv.weight.mul_(2)
+    second = conv.stacked_weight(4)
+    assert second is not first and torch.equal(second.view(4, cout, 8, 3, 7, 7)[0, :, 0],
+                                                conv.weight[:, :, 0])
+    conv.weight.data = conv.weight.data.double()
+    assert conv.stacked_weight(4).dtype == torch.float64
+    with torch.inference_mode():  # a model made there: its weight keeps no version
+        made = FoldedConv3d(3, 8, (5, 7, 7), (1, 2, 2))
+        assert made.stacked_weight(4) is made.stacked_weight(4)
+
+
+def test_cpu_forward_stacks_nothing_and_keeps_the_state(seeded):
+    """On the CPU neither fp32 nor bf16 nor fp16 takes the stacked route:
+    the convs count 0; and after the stacked weights were made, the state
+    dict and the params tree are those of the published layout, byte for
+    byte."""
+    sd, clips, _ = seeded
+    model = program(sd)
+    stems = (model.s1.pathway0_stem.conv, model.s1.pathway1_stem.conv)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    trees = [c.to_tree() for c in stems]
+    x = normalised(clips).permute(0, 4, 1, 2, 3)
+    with torch.no_grad():
+        assert [stems[1].stack_group(x.to(d)) for d in
+                (torch.float32, torch.bfloat16, torch.float16)] == [0, 0, 0]
+    run(model, clips)
+    run(program(sd, dtype=torch.bfloat16), clips, torch.bfloat16)
+    assert stacked_convs(model) == 0
+    for conv, group in zip(stems, (1, 4)):
+        conv.stacked_weight(group)
+    assert list(model.state_dict()) == list(state)
+    assert all(torch.equal(v, state[k]) for k, v in model.state_dict().items())
+    for conv, tree in zip(stems, trees):
+        new = conv.to_tree()
+        assert all(np.array_equal(new[k], tree[k]) for k in tree)
+    assert trees[1]["w"].shape == (5, 7, 7, 3, 2)
 
 
 def test_the_ports_layout_is_the_references():
@@ -318,6 +407,14 @@ def test_spans_under_a_profiler_and_counters(small_engine):
     assert (eng.stats.calls - before[0], eng.stats.clips - before[1],
             eng.stats.frames_packed - before[2], eng.stats.bytes_uploaded - before[3]) == (
         3, 6, 6 * 32, (2 + 3 + 2) * clip_bytes)
+
+
+def test_cpu_engine_counts_no_stacked_conv(small_engine):
+    eng, _ = small_engine
+    frames = window(5)
+    stream = StreamConfig(name="cam-4")
+    eng.predict_clips([[FramePacket(stream, frames[2 * i], i, 0.0) for i in range(32)]])
+    assert eng.stats.calls >= 1 and eng.stats.stacked_convs == 0
 
 
 def test_seeded_engine_without_a_checkpoint(monkeypatch):
