@@ -230,7 +230,6 @@ from __future__ import annotations
 import ast
 import asyncio
 import contextlib
-import copy
 import dataclasses
 import json
 import os
@@ -1235,7 +1234,7 @@ def compare(a, b):
 
 def model_outputs(eng, frames, reduce_scores=True):
     """The engine's model outputs (before NMS) on its selected-step input:
-    the host pick, then pad + cast on the card, as ``_step_selected``;
+    the host pick, then pad + cast on the card, as the selected step;
     every class's score when not ``reduce_scores``."""
     from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
 
@@ -1423,26 +1422,13 @@ def fused_vs_unfused(eng, params, frames, res, launches):
 CAPTURED_BUCKETS = (4, 32, 128)  # the main path's buckets held captured against eager
 
 
-def eager_twin(eng):
-    """A shallow copy of ``eng`` that serves from a cache of eager steps of
-    its own, over ``eng``'s model, weights and prepared state: what a
-    captured step is held to."""
-    from realtime_analytics_tpu_torch.engine.graphs import StepCache
-
-    twin = copy.copy(eng)
-    twin._steps, twin._bucket_cost_ms = StepCache(), {}
-    twin._captures = lambda: False
-    return twin
-
-
-def bucket_run(eng, frames, bucket):
-    """``eng``'s step of ``bucket`` on ``frames`` (host-prepared, padded), as
+def bucket_run(eng, frames):
+    """``eng``'s step of ``frames``' bucket on them (host-prepared), as
     ``predict_arrays`` runs it once it has chosen the bucket: its four
     padded outputs as arrays."""
     src_hw = tuple(frames.shape[1:3])
     host, selected = eng.host_prepare(frames, src_hw)
-    res = eng._run_bucket(bucket, host, src_hw, selected)
-    return [res.boxes_xyxy, res.scores, res.class_ids, res.num_valid]
+    return list(eng.step_for(len(host), src_hw, selected)[0].run_host(host))
 
 
 def detections_run(eng, packets):
@@ -1453,7 +1439,7 @@ def detections_run(eng, packets):
             for f in dets]
 
 
-def captured_case(name, eng, src_hw, run, steps_per_call, device_fns=None):
+def captured_case(name, eng, src_hw, run, steps_per_call, device_x=None):
     """One case of the captured-step phase: ``eng`` warmed (every bucket
     captured), then held against its eager twin on ``run(engine)``:
     results bit-equal, launches equal; the warmup's bucket costs, which
@@ -1461,9 +1447,10 @@ def captured_case(name, eng, src_hw, run, steps_per_call, device_fns=None):
     (``steps_per_call`` graph launches, and inside each replay one
     ``cudaGraphLaunch`` and no call that may wait: no synchronize, no
     copy), the call's host-clock time
-    (median of 20, the two interleaved) and, for ``device_fns`` ((captured
-    step, eager step) on input already on the card), its CUDA-event time;
-    capture seconds a key and the MiB the engine's graphs hold."""
+    (median of 20, the two interleaved) and, on ``device_x`` (a batch
+    already on the card), the CUDA-event time of its captured step and of
+    the eager step it was made from; capture seconds a key and the MiB the
+    engine's graphs hold."""
     from realtime_analytics_tpu_torch.engine.graphs import CapturedStep
     from realtime_analytics_tpu_torch.ops import _cuda
     from realtime_analytics_tpu_torch.scripts.profile_step import SYNC_CALLS, trace
@@ -1475,13 +1462,14 @@ def captured_case(name, eng, src_hw, run, steps_per_call, device_fns=None):
     eng.warmup(src_hw)
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
-    captured = {str(k): s for k, s in eng._steps.items()}
-    assert captured and all(isinstance(s, CapturedStep) for s in captured.values()), \
-        f"{name}: a step of the card's engine is not captured: {captured}"
+    steps = [eng.step_for(b, hw)[0] for hw, costs in eng._bucket_cost_ms.items() for b in costs]
+    assert steps and all(isinstance(s, CapturedStep) for s in steps), \
+        f"{name}: a step of the card's engine is not captured: {steps}"
+    captured = {str(s.key): s for s in steps}
     torch.cuda.empty_cache()
-    graph_mib = eng._steps.pool_mib()
+    graph_mib = steps[0].pool_mib()
     reserved_mib = (torch.cuda.memory_reserved() - reserved0) / 2**20
-    twin = eager_twin(eng)
+    twin = eng.eager_twin()
     twin.warmup(src_hw)  # the eager steps' first calls, and their costs
     torch.cuda.synchronize()
     _cuda.LAUNCHES.reset()
@@ -1517,11 +1505,12 @@ def captured_case(name, eng, src_hw, run, steps_per_call, device_fns=None):
         idle_share=tr["device_idle_share"], eager_idle_share=etr["device_idle_share"],
         host_ms_median=statistics.median(host["captured"]),
         eager_host_ms_median=statistics.median(host["eager"]))
-    if device_fns is not None:
+    if device_x is not None:
+        step, fn = eng.step_for(len(device_x), src_hw)
         with torch.inference_mode():
-            out["events_ms"] = cuda_ms(device_fns[0], iters=20)
-            out["eager_events_ms"] = cuda_ms(device_fns[1], iters=20)
-            out["events_ms_again"] = cuda_ms(device_fns[0], iters=20)
+            out["events_ms"] = cuda_ms(lambda: step(device_x), iters=20)
+            out["eager_events_ms"] = cuda_ms(lambda: fn(device_x), iters=20)
+            out["events_ms_again"] = cuda_ms(lambda: step(device_x), iters=20)
     log(f"captured step {name}: " + json.dumps(dict(out, card=CARD)))
     assert equal, f"{name}: the captured step's results differ from the eager step's"
     assert launches == eager_launches, f"{name}: launches {launches} != eager {eager_launches}"
@@ -1543,7 +1532,6 @@ def run_captured(params, frames, frames720):
     from realtime_analytics_tpu_torch.config import StreamConfig
     from realtime_analytics_tpu_torch.engine.detector import TorchYoloEngine, create_detector
     from realtime_analytics_tpu_torch.engine.export import export_serving_artifact
-    from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
     from realtime_analytics_tpu_torch.types import FramePacket
 
     paths, out = {}, {}
@@ -1551,13 +1539,10 @@ def run_captured(params, frames, frames720):
     src = tuple(frames.shape[1:3])
     eng = TorchYoloEngine(detector_config(batch_buckets=list(CAPTURED_BUCKETS),
                                           max_batch_size=max(CAPTURED_BUCKETS)), params=params)
-    spec = letterbox_spec(src, eng.input_hw)
     for b in CAPTURED_BUCKETS:
         x = torch.from_numpy(eng.host_prepare(big[:b], src)[0]).cuda()
         paths[f"captured_main_b{b}"], out[f"main_b{b}"] = captured_case(
-            f"main b{b}", eng, src, lambda e, b=b: bucket_run(e, big[:b], b), 1,
-            device_fns=(lambda x=x, b=b: eng._get_step_selected(b, src)(x),
-                        lambda x=x: eng._step_selected(x, spec)))
+            f"main b{b}", eng, src, lambda e, b=b: bucket_run(e, big[:b]), 1, device_x=x)
         del x
     del eng
     torch.cuda.empty_cache()
@@ -1568,14 +1553,9 @@ def run_captured(params, frames, frames720):
     for name, (over, fr) in cases.items():
         eng = TorchYoloEngine(detector_config(**over), params=params)
         hw = tuple(fr.shape[1:3])
-        sp = letterbox_spec(hw, eng.input_hw)
-        host, selected = eng.host_prepare(fr, hw)
-        x = torch.from_numpy(host).cuda()
-        get = eng._get_step_selected if selected else eng._get_step
-        fn = eng._step_selected if selected else eng._step_device_resize
+        x = torch.from_numpy(eng.host_prepare(fr, hw)[0]).cuda()
         paths[f"captured_{name}"], out[name] = captured_case(
-            name, eng, hw, lambda e, fr=fr: bucket_run(e, fr, N), 1,
-            device_fns=(lambda: get(N, hw)(x), lambda: fn(x, sp)))
+            name, eng, hw, lambda e, fr=fr: bucket_run(e, fr), 1, device_x=x)
         del eng, x
         torch.cuda.empty_cache()
     packets = [FramePacket(StreamConfig(name=f"cam-{i}", url="synthetic://"), f, i, 0.0)
@@ -1592,12 +1572,10 @@ def run_captured(params, frames, frames720):
     export_serving_artifact(live, rvae, [src])
     del live
     eng = create_detector(detector_config(model_path=rvae))
-    host = torch.from_numpy(eng.host_prepare(frames, src)[0]).cuda()
+    x = torch.from_numpy(eng.host_prepare(frames, src)[0]).cuda()
     paths["captured_rvae_main"], out["rvae_main"] = captured_case(
-        "rvae main", eng, src, lambda e: bucket_run(e, frames, N), 1,
-        device_fns=(lambda: eng._get_step_selected(N, src)(host),
-                    lambda: eng._step_selected(host, spec)))
-    del eng, host
+        "rvae main", eng, src, lambda e: bucket_run(e, frames), 1, device_x=x)
+    del eng, x
     torch.cuda.empty_cache()
     return paths, out
 
@@ -1816,8 +1794,8 @@ def run_yolov5(frames):
     # B1 on the v5 boxes [N, 25200, 4]: the same engine and model outputs,
     # NMS gathering through the kernel and then through torch
     on = fp32.predict_arrays(frames)
+    fp32 = fp32.eager_twin()  # steps of its own: a captured step keeps its gather
     fp32._nms_gather = "torch"
-    fp32._steps.clear()  # the captured step keeps the gather it was captured with
     off = fp32.predict_arrays(frames)
     assert (on.num_valid > 0).all()
     _, score_g, box_g = hold("yolov5 fp32 detections, B1 on vs off", on, off,
@@ -1994,16 +1972,17 @@ def run_device_resize(params, frames):
     return launches, summary
 
 
-def step_breakdown(eng, host_batch, resized: bool):
+def step_breakdown(eng, host_batch):
     """Where a full-frame step's time goes: the upload of ``host_batch``
-    (pageable, host clock, synchronised) and the device step on the
-    resident batch (CUDA events, mean of 3)."""
+    (frames or clips; pageable, host clock, synchronised) and the eager
+    device step on the resident batch (CUDA events, mean of 3)."""
     t0 = time.perf_counter()
     x = torch.from_numpy(host_batch).cuda()
     torch.cuda.synchronize()
     upload_ms = (time.perf_counter() - t0) * 1e3
+    fn = eng.step_for(len(host_batch), host_batch.shape[-3:-1], prepared=False)[1]
     with torch.inference_mode():
-        device_ms = cuda_ms(lambda: eng._step(x, resized), iters=3, warmup=1)
+        device_ms = cuda_ms(lambda: fn(x), iters=3, warmup=1)
     return dict(upload_mb=host_batch.nbytes / 1e6, upload_ms=upload_ms,
                 device_step_ms=device_ms)
 
@@ -2060,7 +2039,7 @@ def run_resnet(params, frames):
                          frames_per_s=N / step_ms * 1e3,
                          max_memory_allocated_mib=torch.cuda.max_memory_allocated() / 2**20,
                          top5_equal_frames=top5, top1_equal_frames=top1,
-                         max_score_delta=score_d, **step_breakdown(eng, frames, False))
+                         max_score_delta=score_d, **step_breakdown(eng, frames))
         del eng
     host = TorchResNetEngine(resnet_config(host_resize="on"), params=params)
     host.classify(frames)
@@ -2122,7 +2101,7 @@ def run_temporal(frames):
                            clip_step_ms_median=step_ms, clip_step_ms_min=step_min,
                            top5_equal_clips=top5, top1_equal_clips=top1,
                            max_prob_delta=score_d, stack_ms=stack_ms,
-                           **step_breakdown(eng, stacked, False))
+                           **step_breakdown(eng, stacked))
         del stacked
         log(f"{family} ({hw}x{hw}, bf16): launches {launches['letterbox']}, top-5 equal on "
             f"{top5}/{clips} clips against B4 off (reported), clip step {step_ms:.1f} ms")
@@ -2411,8 +2390,9 @@ def run_onnx(params, frames, resnet_params):
     resident = torch.from_numpy(frames).cuda()
     torch.cuda.synchronize()
     upload_ms = (time.perf_counter() - t0) * 1e3
+    fn = eng.step_for(len(frames), frames.shape[1:3])[1]
     with torch.inference_mode():
-        device_ms = cuda_ms(lambda: eng._step_device_resize(resident, spec), iters=5, warmup=1)
+        device_ms = cuda_ms(lambda: fn(resident), iters=5, warmup=1)
         xg = eng._device_letterbox(resident, spec).permute(0, 3, 1, 2)
         feeds = {eng.model.input_name: xg, **eng.model.params()}
         fn = eng.model._fn

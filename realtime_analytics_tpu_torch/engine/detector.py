@@ -47,14 +47,16 @@ top-k instead of the engine's NMS. The ResNet engine (and the temporal
 one) serve a classifier (clip) graph in their usual steps.
 
 A step is prepared once per key and reused, as the JAX engine's ``_steps``
-holds one ``jax.jit`` program per (batch bucket x source resolution):
-``_get_step_selected`` and ``_get_step`` fill ``_steps`` under JAX's keys,
-``(B, H, W, "sel")`` and ``(B, H, W)``, at the key's first use (``warmup``
-runs every bucket it times). On the card the entry is the eager step
-(``_step_selected`` / ``_step_device_resize``, a closure over the static
-letterbox geometry) captured as a CUDA graph and replayed from then on
-(``engine/graphs.py``); on the CPU, under a mesh and on a graph-backed
-engine it is the eager step itself. The step holds no host wait (NMS's
+holds one ``jax.jit`` program per (batch bucket x source resolution): every
+family keeps its steps in ``_steps`` under JAX's keys at the key's first
+use (``warmup`` runs every bucket it times; ``BaseDetector``). A YOLO
+step, keyed ``(B, H, W, "sel")`` or ``(B, H, W)``, is on the card the eager
+step (``_step_selected`` / ``_step_device_resize``, a closure over the
+static letterbox geometry) captured as a CUDA graph and replayed from then
+on (``engine/graphs.py``); on the CPU, under a mesh and on a graph-backed
+engine it is the eager step itself, as the ResNet and temporal steps are
+everywhere. ``step_for`` hands a batch's step to a caller outside the
+engine. The step holds no host wait (NMS's
 keep pass is kernel B6 on the card; the un-letterbox takes its geometry
 as numbers), so ``engine/export.py`` also traces it into one
 ``torch.export`` program per shape. What a step reads besides the model's
@@ -85,7 +87,7 @@ import copy
 import dataclasses
 import logging
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -132,11 +134,23 @@ logger = logging.getLogger(__name__)
 
 
 class BaseDetector(abc.ABC):
-    """Single-packet predict interface (reference detector.py:43-51)."""
+    """Single-packet predict interface (reference detector.py:43-51), and
+    what every engine family shares: the mesh helpers and the steps.
+
+    An engine keeps one prepared step per key in ``_steps``, as the JAX
+    engines keep one ``jax.jit`` program per key, under JAX's keys: ``(B,
+    H, W, "sel")`` and ``(B, H, W)`` for YOLO, ``(B, "rsz")`` and ``(B, H,
+    W)`` for the classifiers (host-resized input and full frames). A family
+    supplies the host-prepare decision of a source (``_host_prepares``),
+    the key of a batch (``_step_key``), the step function of a key and its
+    input shape (``_step_fn``), and whether it captures its steps
+    (``_captures``); the bucket choice, the warmup and the timed run of a
+    step are this class's."""
 
     config: DetectorConfig
     mesh = None  # set by _init_mesh when detector.mesh_shape is configured
     sharded = None  # the model over the mesh (parallel/mesh.ShardedModel)
+    _step_span = "step"  # the span an eager step's run on a host batch records
 
     @abc.abstractmethod
     def predict(self, packet: FramePacket) -> List[Detection]:
@@ -182,16 +196,17 @@ class BaseDetector(abc.ABC):
 
     def use_mesh(self, mesh) -> None:
         """Serve over ``mesh``: the model over it (``ShardedModel``), B3
-        off. ``_init_mesh`` comes here with the (dp, tp) mesh of
-        ``mesh_shape``; a (dp, sp, tp) mesh, which no config key names (the
-        JAX engine's ``mesh_shape`` is [dp, tp] too), is given here by the
-        caller."""
+        off, and the steps prepared off the mesh dropped. ``_init_mesh``
+        comes here with the (dp, tp) mesh of ``mesh_shape``; a (dp, sp, tp)
+        mesh, which no config key names (the JAX engine's ``mesh_shape`` is
+        [dp, tp] too), is given here by the caller."""
         if mesh.lead(0) != self.device:
             raise ConfigError(f"the mesh's first device {mesh.lead(0)} is not the "
                               f"engine's device {self.device}")
         if isinstance(self.model, YoloModel):
             self.model.pallas_stem = "off"
         self.mesh, self.sharded = mesh, ShardedModel(self.model, mesh)
+        self._steps = StepCache()
 
     def _round_mesh(self, bucket: int) -> int:
         """In mesh mode the batch shards over dp, so buckets round up to a
@@ -201,11 +216,127 @@ class BaseDetector(abc.ABC):
             bucket = ((bucket + dp - 1) // dp) * dp
         return bucket
 
-    def _mesh_call(self, step, arr: np.ndarray, *args):
-        """Run a device step on batch-leading host input ``arr``: uploaded
-        to the engine's device (the mesh's first), where the step's sharded
-        parts (``net``, the kernels' dp forms) split it over dp."""
-        return step(torch.from_numpy(np.ascontiguousarray(arr)).to(self.device), *args)
+    # -- the steps (every engine family shares these) ----------------------
+
+    def _init_steps(self) -> None:
+        self._steps = StepCache()
+        self._bucket_cost_ms: Dict[Tuple[int, int], Dict[int, float]] = {}
+        self.last_infer_ms = 0.0
+
+    def _host_resize_active(self) -> bool:
+        """auto = on for the card (as the JAX package does for its TPU:
+        upload the resized content, run the lean step), off for the CPU."""
+        return self.config.host_resize == "on" or (
+            self.config.host_resize == "auto" and self.device.type == "cuda"
+        )
+
+    def _host_prepares(self, src_hw: Tuple[int, int]) -> bool:
+        """Whether the host picks or resizes frames of ``src_hw`` before
+        the upload, as serving decides it."""
+        return self.host_prepare(np.zeros((1, *src_hw, 3), np.uint8), src_hw)[1]
+
+    def _step_key(self, batch: int, src_hw: Tuple[int, int], prepared: bool):
+        """The classifiers' keys, JAX's: one host-resized step of a batch
+        serves every source."""
+        return (batch, "rsz") if prepared else (batch, *src_hw)
+
+    def _step_fn(self, key) -> Tuple[Callable, Tuple[int, ...]]:
+        """(the eager step of ``key`` on a uint8 device batch, the batch's
+        shape)."""
+        raise NotImplementedError
+
+    def _captures(self) -> bool:
+        """Whether this engine captures its steps as CUDA graphs."""
+        return False
+
+    def _buckets(self, src_hw: Tuple[int, int]) -> Sequence[int]:
+        """The buckets a batch of ``src_hw`` may run at."""
+        return self.config.resolved_buckets
+
+    def _make_step(self, key):
+        """The step of ``key``: the eager step, captured where the engine
+        captures (a failed capture raises, naming the key)."""
+        fn, shape = self._step_fn(key)
+        if not self._captures():
+            return EagerStep(fn, self.device, self._step_span)
+        logger.info("capturing step %s", key)
+        step = CapturedStep(fn, shape, torch.uint8, self.device, key=key, cache=self._steps)
+        logger.info("captured step %s in %.2fs: launches a replay %s", key, step.capture_s,
+                    step.launches)
+        return step
+
+    def step_for(self, batch: int, src_hw: Tuple[int, int], prepared: Optional[bool] = None):
+        """(step, fn): the cached step that serves ``batch`` frames (clips)
+        of ``src_hw``, made at its first use, and the eager function it was
+        made from. The step takes the input serving uploads: host-picked or
+        host-resized where the host prepares it (``prepared``; None: as
+        serving decides for ``src_hw``)."""
+        if prepared is None:
+            prepared = self._host_prepares(src_hw)
+        key = self._step_key(batch, tuple(src_hw), prepared)
+        return self._steps.setdefault_made(key, lambda: self._make_step(key)), \
+            self._step_fn(key)[0]
+
+    def eager_twin(self):
+        """A shallow copy of this engine over its model, weights and
+        prepared state that serves from eager steps and bucket costs of its
+        own: what a captured step is held to."""
+        twin = copy.copy(self)
+        twin._init_steps()
+        twin._captures = lambda: False
+        return twin
+
+    def _run_step(self, key, batch) -> Tuple[np.ndarray, ...]:
+        """The cached step of ``key`` on a host batch (an array, or a
+        tensor in host memory, uploaded as it is): its outputs as arrays,
+        and its time in ``last_infer_ms``."""
+        step = self._steps.setdefault_made(key, lambda: self._make_step(key))
+        t0 = time.perf_counter()
+        out = step.run_host(batch)
+        self.last_infer_ms = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def _run_bucket(self, bucket: int, frames: np.ndarray, src_hw: Tuple[int, int],
+                    prepared: bool):
+        """``frames`` padded to ``bucket`` (more than it run unpadded)
+        through the step of their key: the outputs of the frames."""
+        n = frames.shape[0]
+        out = self._run_step(self._step_key(max(n, bucket), src_hw, prepared),
+                             _padded(frames, bucket))
+        return tuple(o[:n] for o in out)
+
+    def _effective_bucket(self, n: int, src_hw: Tuple[int, int]) -> int:
+        """The cheapest warmed bucket that fits n frames, for THIS source
+        resolution (costs are per resolution), else the smallest; rounded
+        up to a multiple of dp under a mesh."""
+        return self._round_mesh(_cheapest_bucket(
+            self._buckets(src_hw), n, self._bucket_cost_ms.get(tuple(src_hw), {})))
+
+    def warmup(self, src_hw: Tuple[int, int], buckets: Optional[Sequence[int]] = None):
+        """Prepare every bucket's step (on the card: warm it, which settles
+        allocations, cuDNN's algorithm choice and the first-use kernel
+        build, and capture it where the engine captures), then time it (min
+        of 3) for cost-aware bucket choice, on zeros of the input serving
+        uploads, so that the choice compares the steps that serve. Under a
+        mesh each bucket runs rounded to dp, as serving runs it; its cost
+        is recorded under the bucket before rounding, the key the choice
+        compares."""
+        src_hw = (int(src_hw[0]), int(src_hw[1]))
+        avail = self._buckets(src_hw)
+        prepared = self._host_prepares(src_hw)
+        costs = self._bucket_cost_ms.setdefault(src_hw, {})
+        for b in buckets or avail:
+            b = _bucket_for(avail, b)
+            rb = self._round_mesh(b)
+            key = self._step_key(rb, src_hw, prepared)
+            zeros = np.zeros(self._step_fn(key)[1], np.uint8)
+            self._run_bucket(rb, zeros, src_hw, prepared)
+            cost = float("inf")
+            for _ in range(3):
+                self._run_bucket(rb, zeros, src_hw, prepared)
+                cost = min(cost, self.last_infer_ms)
+            costs[b] = cost
+            logger.info("warmup: bucket B=%d src=%s step %s: %.1fms", rb, src_hw, key, cost)
 
 
 def pick_device(config: DetectorConfig) -> torch.device:
@@ -264,6 +395,22 @@ def _cheapest_bucket(buckets: Sequence[int], n: int, costs: Dict[int, float]) ->
         if cands:
             bucket = min(cands, key=lambda b: (costs[b], b))
     return bucket
+
+
+def _padded(frames: np.ndarray, bucket: int) -> np.ndarray:
+    """``frames`` padded with zero frames up to ``bucket``."""
+    n = frames.shape[0]
+    if n >= bucket:
+        return frames
+    return np.concatenate([frames, np.zeros((bucket - n, *frames.shape[1:]), frames.dtype)])
+
+
+def by_frame_shape(frames: Iterable[np.ndarray]) -> Dict[Tuple[int, int], List[int]]:
+    """The indices of ``frames`` by frame shape (H, W), in first-seen order."""
+    groups: Dict[Tuple[int, int], List[int]] = {}
+    for i, f in enumerate(frames):
+        groups.setdefault(tuple(f.shape[:2]), []).append(i)
+    return groups
 
 
 class PreparedState:
@@ -326,6 +473,7 @@ class PreparedState:
             bound._operands[hw] = LetterboxOperands(
                 t["taps"], t["weights"], t["spans"], self.operands_for(hw).ints)
         bound._bind_own(state)
+        bound._steps = StepCache()  # its steps read the bound tensors
         return bound
 
 
@@ -406,10 +554,8 @@ class TorchYoloEngine(PreparedState, BaseDetector):
             mask = torch.zeros(config.num_classes, dtype=torch.bool)
             mask[torch.as_tensor(config.classes, dtype=torch.long)] = True
             self._class_mask = mask.to(self.device)
-        self._steps = StepCache()  # (B, H, W[, "sel"]) -> the prepared step
-        self._bucket_cost_ms: Dict[Tuple[int, int], Dict[int, float]] = {}
+        self._init_steps()
         self.class_agnostic_nms = True  # reference NMS is class-agnostic
-        self.last_infer_ms: float = 0.0
         self._operands = {}
         # multi-device: detector.mesh_shape = [dp, tp] shards the convs'
         # channels over tp and every batch over dp (graph-backed: dp only)
@@ -499,15 +645,6 @@ class TorchYoloEngine(PreparedState, BaseDetector):
         if self._class_mask is not None:
             self._class_mask = state["class_mask"]
 
-    def bind(self, model, state: Dict):
-        bound = super().bind(model, state)
-        bound._steps = StepCache()  # its steps read the bound tensors
-        return bound
-
-    def use_mesh(self, mesh) -> None:
-        super().use_mesh(mesh)
-        self._steps = StepCache()  # the steps prepared off the mesh go
-
     # -- host side ------------------------------------------------------
 
     @staticmethod
@@ -550,14 +687,6 @@ class TorchYoloEngine(PreparedState, BaseDetector):
             if resized is not None:
                 return resized, True
         return frames, False
-
-    def _host_resize_active(self) -> bool:
-        """auto = on for the card (as the JAX package does for its TPU:
-        upload the resized content, run the lean selected step), off for
-        the CPU."""
-        return self.config.host_resize == "on" or (
-            self.config.host_resize == "auto" and self.device.type == "cuda"
-        )
 
     @staticmethod
     def _host_resize_packets(frames, spec) -> Optional[np.ndarray]:
@@ -673,82 +802,31 @@ class TorchYoloEngine(PreparedState, BaseDetector):
                               spec.src_h, spec.src_w)
         return b, s, c, n
 
-    # -- the step cache ---------------------------------------------------
+    # -- the steps ----------------------------------------------------------
 
     def _captures(self) -> bool:
-        """Whether this engine captures its steps: on the card, off a mesh
-        (multi-device capture is not done yet) and for a native YOLO model
-        (a graph-backed model's interpreter is not yet held capture-safe)."""
+        """On the card, off a mesh (multi-device capture is not done yet)
+        and for a native YOLO model (a graph-backed model's interpreter is
+        not yet held capture-safe)."""
         return self.device.type == "cuda" and self.mesh is None and not self._graph_backed
 
-    def _get_step_selected(self, batch: int, src_hw: Tuple[int, int]):
-        return self._cached_step((batch, *src_hw, "sel"), batch, src_hw, True)
+    def _step_key(self, batch: int, src_hw: Tuple[int, int], selected: bool):
+        return (batch, *src_hw, "sel") if selected else (batch, *src_hw)
 
-    def _get_step(self, batch: int, src_hw: Tuple[int, int]):
-        return self._cached_step((batch, *src_hw), batch, src_hw, False)
-
-    def _cached_step(self, key, batch: int, src_hw: Tuple[int, int], selected: bool):
-        return self._steps.setdefault_made(
-            key, lambda: self._make_step(key, batch, src_hw, selected))
-
-    def _make_step(self, key, batch: int, src_hw: Tuple[int, int], selected: bool):
-        """The step of ``key``: the eager step over the static geometry,
-        captured on the card (a failed capture raises, naming the key)."""
-        spec = letterbox_spec(src_hw, self.input_hw)
-        method = self._step_selected if selected else self._step_device_resize
-        fn = lambda x: method(x, spec)  # noqa: E731
-        if not self._captures():
-            return EagerStep(fn, self.device)
-        logger.info("capturing fused detect step%s for batch=%d src=%s",
-                    " (host-select)" if selected else "", batch, tuple(src_hw))
-        hw = (spec.new_h, spec.new_w) if selected else (spec.src_h, spec.src_w)
-        step = CapturedStep(fn, (batch, *hw, 3), torch.uint8, self.device, key=key,
-                            cache=self._steps)
-        logger.info("captured step %s in %.2fs: launches a replay %s", key, step.capture_s,
-                    step.launches)
-        return step
-
-    # -- buckets ----------------------------------------------------------
-
-    def _effective_bucket(self, n: int, src_hw: Tuple[int, int]) -> int:
-        """The cheapest warmed bucket that fits n frames, for THIS source
-        resolution (costs are per resolution), else the smallest; rounded
-        up to a multiple of dp under a mesh."""
-        return self._round_mesh(_cheapest_bucket(
-            self.config.resolved_buckets, n,
-            self._bucket_cost_ms.get(tuple(src_hw), {}),
-        ))
+    def _step_fn(self, key):
+        """The selected step over host-picked (or host-resized) input, or
+        the device-resize step over full frames, each a closure over the
+        static letterbox geometry of the key's source."""
+        spec = letterbox_spec(key[1:3], self.input_hw)
+        if key[3:] == ("sel",):
+            return (lambda x: self._step_selected(x, spec)), (key[0], spec.new_h, spec.new_w, 3)
+        return (lambda x: self._step_device_resize(x, spec)), (key[0], spec.src_h, spec.src_w, 3)
 
     def warmup(self, src_hw: Tuple[int, int], buckets: Optional[Sequence[int]] = None):
-        """Prepare every bucket's step (on the card: warm it, which settles
-        allocations, cuDNN algorithm choice and the first-use kernel build,
-        and capture it), then time it (min of 3) for cost-aware bucket
-        selection, so that selection compares the steps that serve. Under a
-        mesh each bucket runs rounded to dp, the step ``predict_arrays``
-        then runs; its cost is recorded under the bucket before rounding,
-        the key selection compares."""
-        buckets = buckets or self.config.resolved_buckets
-        _, selected = self.host_prepare(np.zeros((1, *src_hw, 3), np.uint8), src_hw)
-        costs = self._bucket_cost_ms.setdefault(tuple(src_hw), {})
-        for b in buckets:
-            b0 = _bucket_for(self.config.resolved_buckets, b)
-            rb = self._round_mesh(b0)
-            prepared, _ = self.host_prepare(
-                np.zeros((rb, *src_hw, 3), dtype=np.uint8), src_hw
-            )
-            self._run_bucket(rb, prepared, src_hw, selected)
-            cost = float("inf")
-            for _ in range(3):
-                self._run_bucket(rb, prepared, src_hw, selected)
-                cost = min(cost, self.last_infer_ms)
-            costs[b0] = cost
-            logger.info(
-                "warmup: bucket B=%d src=%s (host_select=%s) step=%.1fms",
-                rb, src_hw, selected, cost,
-            )
+        super().warmup(src_hw, buckets)
         if self._tiling_active(src_hw) and tuple(src_hw) != tuple(self.input_hw):
             # tiled serving runs the input-sized step on the tile crops
-            self.warmup(self.input_hw, buckets)
+            super().warmup(self.input_hw, buckets)
 
     # -- prediction -------------------------------------------------------
 
@@ -771,20 +849,8 @@ class TorchYoloEngine(PreparedState, BaseDetector):
     def _run_bucket(self, bucket: int, frames: np.ndarray,
                     src_hw: Tuple[int, int], selected: bool) -> BatchResult:
         """Pad to exactly ``bucket`` and run its cached step: the batch
-        copied in, the padded results copied out (warmup uses this directly
-        to prepare and time a specific bucket)."""
-        n = frames.shape[0]
-        if n < bucket:
-            pad = np.zeros((bucket - n, *frames.shape[1:]), dtype=frames.dtype)
-            frames = np.concatenate([frames, pad], axis=0)
-        step = (self._get_step_selected(bucket, src_hw) if selected
-                else self._get_step(bucket, src_hw))
-        t0 = time.perf_counter()
-        b, s, c, nv = step.run_host(frames)
-        self.last_infer_ms = (time.perf_counter() - t0) * 1e3
-        return BatchResult(
-            boxes_xyxy=b[:n], scores=s[:n], class_ids=c[:n], num_valid=nv[:n],
-        )
+        copied in, the padded results copied out."""
+        return BatchResult(*super()._run_bucket(bucket, frames, src_hw, selected))
 
     def _predict_group(self, frames_list: Sequence[np.ndarray],
                        shape: Tuple[int, int]) -> BatchResult:
@@ -876,11 +942,8 @@ class TorchYoloEngine(PreparedState, BaseDetector):
             return self._predict_packets(packets)
 
     def _predict_packets(self, packets: Sequence[FramePacket]) -> List[List[Detection]]:
-        by_shape: Dict[Tuple[int, int], List[int]] = {}
-        for i, p in enumerate(packets):
-            by_shape.setdefault(tuple(p.frame.shape[:2]), []).append(i)
         results: List[List[Detection]] = [[] for _ in packets]
-        for shape, idxs in by_shape.items():
+        for shape, idxs in by_frame_shape(p.frame for p in packets).items():
             frames_list = [packets[i].frame for i in idxs]
             if self._tiling_active(shape):
                 br = self._predict_tiled_group(frames_list, shape)
@@ -1010,8 +1073,7 @@ class TorchResNetEngine(PreparedState, BaseDetector):
             resnet_params_from_jax(self.model, params)
             self.model.to(device=self.device, dtype=self.compute_dtype,
                           memory_format=torch.channels_last).eval()
-        self._bucket_cost_ms: Dict[Tuple[int, int], Dict[int, float]] = {}
-        self.last_infer_ms = 0.0
+        self._init_steps()
         self._operands = {}
         # multi-device: [dp, tp] shards conv channels over tp, batches over
         # dp (classifier graphs: dp only)
@@ -1019,11 +1081,6 @@ class TorchResNetEngine(PreparedState, BaseDetector):
 
     def _operands_spec(self, src_hw):
         return stretch_spec(src_hw, self.input_hw), torch.float32
-
-    def _host_resize_active(self) -> bool:
-        return self.config.host_resize == "on" or (
-            self.config.host_resize == "auto" and self.device.type == "cuda"
-        )
 
     def host_prepare(self, frames, src_hw: Tuple[int, int]):
         """(prepared uint8 frames, resized: bool). With ``host_resize``
@@ -1055,36 +1112,10 @@ class TorchResNetEngine(PreparedState, BaseDetector):
                                  self.mesh)
         return self._classify_head(x)
 
-    def _run_bucket(self, bucket: int, frames: np.ndarray, resized: bool):
-        """Pad to ``bucket`` frames, run the step, bring the top-k back."""
-        n = frames.shape[0]
-        if n < bucket:
-            frames = np.concatenate(
-                [frames, np.zeros((bucket - n, *frames.shape[1:]), frames.dtype)])
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            scores, classes = self._mesh_call(self._step, frames, resized)
-            scores, classes = scores.cpu().numpy(), classes.cpu().numpy()
-        self.last_infer_ms = (time.perf_counter() - t0) * 1e3
-        return scores[:n], classes[:n]
-
-    def warmup(self, src_hw: Tuple[int, int], buckets: Optional[Sequence[int]] = None):
-        """Run each bucket once, then time it (min of 3) for cost-aware
-        bucket selection, on the input ``classify`` will upload."""
-        buckets = buckets or self.config.resolved_buckets
-        probe, resized = self.host_prepare(np.zeros((1, *src_hw, 3), np.uint8), src_hw)
-        costs = self._bucket_cost_ms.setdefault(tuple(src_hw), {})
-        for b in buckets:
-            rb = self._round_mesh(b)
-            frames = np.zeros((rb, *probe.shape[1:]), np.uint8)
-            self._run_bucket(rb, frames, resized)
-            cost = float("inf")
-            for _ in range(3):
-                self._run_bucket(rb, frames, resized)
-                cost = min(cost, self.last_infer_ms)
-            costs[b] = cost
-            logger.info("resnet warmup: bucket B=%d src=%s (host_resize=%s) step=%.1fms",
-                        rb, src_hw, resized, cost)
+    def _step_fn(self, key):
+        resized = key[1] == "rsz"
+        hw = self.input_hw if resized else key[1:3]
+        return (lambda x: self._step(x, resized)), (key[0], *hw, 3)
 
     def classify(self, frames) -> Tuple[np.ndarray, np.ndarray]:
         """frames: same-resolution uint8 BGR frames (an array or a list) ->
@@ -1094,17 +1125,12 @@ class TorchResNetEngine(PreparedState, BaseDetector):
         if not resized:
             prepared = np.stack(prepared) if isinstance(prepared, list) else prepared
         # more frames than the largest bucket run unpadded, as in JAX
-        bucket = self._round_mesh(_cheapest_bucket(self.config.resolved_buckets,
-                                                   len(prepared),
-                                                   self._bucket_cost_ms.get(src_hw, {})))
-        return self._run_bucket(bucket, prepared, resized)
+        return self._run_bucket(self._effective_bucket(len(prepared), src_hw), prepared,
+                                src_hw, resized)
 
     def predict_packets(self, packets: Sequence[FramePacket]) -> List[List[Detection]]:
-        by_shape: Dict[Tuple[int, int], List[int]] = {}
-        for i, p in enumerate(packets):
-            by_shape.setdefault(tuple(p.frame.shape[:2]), []).append(i)
         results: List[List[Detection]] = [[] for _ in packets]
-        for (h, w), idxs in by_shape.items():
+        for (h, w), idxs in by_frame_shape(p.frame for p in packets).items():
             scores, classes = self.classify([packets[i].frame for i in idxs])
             for j, i in enumerate(idxs):
                 p = packets[i]

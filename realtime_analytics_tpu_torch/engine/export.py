@@ -83,7 +83,6 @@ import logging
 import os
 import tempfile
 import zipfile
-from collections import Counter
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -92,17 +91,14 @@ import torch
 from ..config import ConfigError, DetectorConfig
 # each kernel module registers its rva:: op, which the loaded programs call
 from ..ops import _cuda, decode, gather, letterbox, nms, stem  # noqa: F401
-from ..ops.preprocess import letterbox_spec
 from .detector import (
     TorchResNetEngine,
     TorchYoloEngine,
-    _cheapest_bucket,
     fp32_means_fp32,
     fuse_neck_on,
     pick_device,
     to_graph_device,
 )
-from .graphs import StepCache
 from .temporal import ClipStaging, ClipStats, TorchTemporalEngine
 
 logger = logging.getLogger(__name__)
@@ -293,27 +289,13 @@ def _program_file(name: str, platform: str, several: bool) -> str:
     return f"programs/{platform}/{name}.pt2" if several else f"programs/{name}.pt2"
 
 
-def _program_for(engine, kind: str, src_hw: Tuple[int, int], batch: int):
+def _program_for(engine, src_hw: Tuple[int, int], batch: int):
     """(step on the device input, input shape, kind tag) for one program:
-    the same host-prepare decision the engine makes when it serves."""
-    if kind == "yolo":
-        probe, selected = engine.host_prepare(np.zeros((1, *src_hw, 3), np.uint8), src_hw)
-        spec = letterbox_spec(src_hw, engine.input_hw)
-        step = (TorchYoloEngine._step_selected if selected
-                else TorchYoloEngine._step_device_resize)
-        return ((lambda eng, x: step(eng, x, spec)), (batch, *probe.shape[1:3], 3),
-                "sel" if selected else "full")
-    if kind == "resnet":
-        probe, resized = engine.host_prepare(np.zeros((1, *src_hw, 3), np.uint8), src_hw)
-        return ((lambda eng, x: TorchResNetEngine._step(eng, x, resized)),
-                (batch, *probe.shape[1:3], 3), "rsz" if resized else "full")
-    # temporal: the clip step over [B, T, H, W, 3]; _host_resize_active
-    # includes the cv2 probe, so this is the serve-time decision
-    th, tw = engine.input_hw
-    resized = engine._host_resize_active() and tuple(src_hw) != (th, tw)
-    hw = (th, tw) if resized else tuple(src_hw)
-    return ((lambda eng, x: TorchTemporalEngine._step(eng, x, resized)),
-            (batch, engine.config.sequence_length, *hw, 3), "rsz" if resized else "full")
+    the engine's step of the key it serves the batch under, with the same
+    host-prepare decision."""
+    key = engine._step_key(batch, src_hw, engine._host_prepares(src_hw))
+    tag = key[-1] if isinstance(key[-1], str) else "full"
+    return (lambda eng, x: eng._step_fn(key)[0](x)), engine._step_fn(key)[1], tag
 
 
 def _graph_backed(engine) -> bool:
@@ -406,7 +388,7 @@ def export_serving_artifact(
     plans, flat = {}, {}
     for platform in export_platforms(platforms, engine.device.type):
         eng = _platform_engine(engine, platform, src_hws)
-        plans[platform] = (eng, [(src_hw, b, *_program_for(eng, kind, src_hw, b))
+        plans[platform] = (eng, [(src_hw, b, *_program_for(eng, src_hw, b))
                                  for src_hw in src_hws for b in buckets])
         inputs = _program_inputs(eng, list(dict.fromkeys(
             src for src, _, _, _, tag in plans[platform][1] if tag == "full")))
@@ -553,8 +535,8 @@ class _ArtifactMixin:
                               "with at least one source resolution")
         self.meta = meta
         self._programs = {(p["src_h"], p["src_w"], p["batch"], p["kind"]): p for p in rows}
-        # loaded programs by name, each with its inputs; the YOLO engine's
-        # _steps holds the runnable step of each key, as the live engine's
+        # loaded programs by name, each with its inputs; _steps holds the
+        # runnable step of each key, as the live engine's
         self._loaded_programs: Dict[str, Tuple[Callable, Dict[str, torch.Tensor]]] = {}
         self.input_hw = (int(meta["input_size"][0]), int(meta["input_size"][1]))
         self._graph_backed = bool(meta.get("graph_backed", False))
@@ -579,8 +561,7 @@ class _ArtifactMixin:
                     "detector.%s=%s differs from the artifact's traced-in %s — these "
                     "are part of the exported programs; re-export to change them",
                     knob, getattr(config, knob), meta.get(knob))
-        self._bucket_cost_ms: Dict[Tuple[int, int], Dict[int, float]] = {}
-        self.last_infer_ms = 0.0
+        self._init_steps()
         # the bucket machinery (batcher max_batch, clip flush target,
         # warmup) tracks the artifact's buckets, and the host-prepare
         # decision traced into each program's input shape tracks export's
@@ -589,8 +570,23 @@ class _ArtifactMixin:
             config, batch_buckets=buckets, max_batch_size=buckets[-1],
             host_select=meta["host_select"], host_resize=meta["host_resize"])
 
-    def _artifact_buckets(self, src_hw: Tuple[int, int]) -> List[int]:
-        return sorted({b for (h, w, b, _kind) in self._programs if (h, w) == tuple(src_hw)})
+    def _buckets(self, src_hw: Tuple[int, int]) -> List[int]:
+        """The exported buckets of ``src_hw`` (an 'rsz' program serves every
+        source): the only ones warmup and the bucket choice may run."""
+        avail = sorted({b for (h, w, b, kind) in self._programs
+                        if (h, w) == tuple(src_hw) or kind == "rsz"})
+        if not avail:
+            raise ConfigError(self._missing(src_hw))
+        return avail
+
+    def _effective_bucket(self, n: int, src_hw: Tuple[int, int]) -> int:
+        """The live engines run an oversized batch as it is; an artifact
+        cannot: fail with the designed message."""
+        bucket = super()._effective_bucket(n, src_hw)
+        if n > bucket:
+            raise ValueError(f"batch {n} exceeds the largest exported bucket {bucket} "
+                             f"for {tuple(src_hw)} in {self.config.model_path}")
+        return bucket
 
     def _missing(self, src_hw, batch=None, kind=None) -> str:
         have = ", ".join(sorted({p["name"] for p in self._programs.values()}))
@@ -632,27 +628,6 @@ class _ArtifactMixin:
         program, inputs = hit
         return program(inputs, x)
 
-    def _guard_group_size(self, n: int) -> None:
-        """The live engines run an oversized group as it is; an artifact
-        cannot: fail with the designed message."""
-        cap = self.config.max_batch_size  # aligned to the artifact
-        if n > cap:
-            raise ValueError(f"batch {n} exceeds the largest exported bucket {cap} "
-                             f"in {self.config.model_path}")
-
-    def _guard_groups(self, shapes) -> None:
-        for _shape, n in Counter(tuple(s) for s in shapes).items():
-            self._guard_group_size(n)
-
-    def _effective_bucket(self, n: int, src_hw: Tuple[int, int]) -> int:
-        avail = self._artifact_buckets(src_hw)
-        if not avail:
-            raise ConfigError(self._missing(src_hw))
-        if n > avail[-1]:
-            raise ValueError(f"batch {n} exceeds the largest exported bucket {avail[-1]} "
-                             f"for {src_hw} in {self.config.model_path}")
-        return _cheapest_bucket(avail, n, self._bucket_cost_ms.get(tuple(src_hw), {}))
-
 
 class ExportedYoloEngine(_ArtifactMixin, TorchYoloEngine):
     """Serve YOLO detection from a ``.rvae`` artifact: the host path (pixel
@@ -668,7 +643,6 @@ class ExportedYoloEngine(_ArtifactMixin, TorchYoloEngine):
     def __init__(self, config: DetectorConfig):
         config.validate()
         self._init_artifact(config, "yolo")
-        self._steps = StepCache()
         self.class_agnostic_nms = True  # the tiling merge's, as the live engine's
 
     def _step_selected(self, sel_u8: torch.Tensor, spec):
@@ -676,34 +650,6 @@ class ExportedYoloEngine(_ArtifactMixin, TorchYoloEngine):
 
     def _step_device_resize(self, frames_u8: torch.Tensor, spec):
         return self._run_program((spec.src_h, spec.src_w), frames_u8, "full")
-
-    def warmup(self, src_hw: Tuple[int, int], buckets: Optional[Sequence[int]] = None) -> None:
-        """Run and time (min of 3) every exported bucket of ``src_hw``, on
-        the program the serve-time host-prepare decision picks: a host path
-        that drifted since export (cv2 missing, host_select overridden)
-        raises the designed missing-program ConfigError."""
-        src_hw = (int(src_hw[0]), int(src_hw[1]))
-        avail = self._artifact_buckets(src_hw)
-        if not avail:
-            raise ConfigError(self._missing(src_hw))
-        costs = self._bucket_cost_ms.setdefault(src_hw, {})
-        for b in avail:
-            if buckets and b not in buckets:
-                continue
-            prepared, selected = self.host_prepare(np.zeros((b, *src_hw, 3), np.uint8), src_hw)
-            kind = "sel" if selected else "full"
-            if (src_hw[0], src_hw[1], b, kind) not in self._programs:
-                raise ConfigError(self._missing(src_hw, b, kind))
-            cost = float("inf")
-            for _ in range(3):
-                self._run_bucket(b, prepared, src_hw, selected)
-                cost = min(cost, self.last_infer_ms)
-            costs[b] = cost
-            logger.info("exported warmup: bucket B=%d src=%s (%s) step=%.1fms",
-                        b, src_hw, kind, cost)
-        if self._tiling_active(src_hw) and src_hw != tuple(self.input_hw):
-            # tiled serving runs the input-sized program on the tile crops
-            self.warmup(self.input_hw, buckets)
 
 
 class ExportedResNetEngine(_ArtifactMixin, TorchResNetEngine):
@@ -713,10 +659,6 @@ class ExportedResNetEngine(_ArtifactMixin, TorchResNetEngine):
     def __init__(self, config: DetectorConfig):
         config.validate()
         self._init_artifact(config, "resnet")
-
-    def predict_packets(self, packets):
-        self._guard_groups(p.frame.shape[:2] for p in packets)
-        return super().predict_packets(packets)
 
     def _step(self, frames_u8: torch.Tensor, resized: bool):
         return self._run_program(tuple(frames_u8.shape[1:3]), frames_u8,
@@ -744,10 +686,6 @@ class ExportedTemporalEngine(_ArtifactMixin, TorchTemporalEngine):
         self._warned_no_cv2 = False
         self.stats = ClipStats()
         self._staging = ClipStaging(self.device.type == "cuda")
-
-    def predict_clips(self, sequences):
-        self._guard_groups(seq[0].frame.shape[:2] for seq in sequences)
-        return super().predict_clips(sequences)
 
     def _step(self, clips_u8: torch.Tensor, resized: bool):
         return self._run_program(tuple(clips_u8.shape[2:4]), clips_u8,

@@ -1,17 +1,17 @@
-"""One prepared program per bucket: the YOLO engines' device steps,
-captured once as CUDA graphs and replayed.
+"""One prepared program per bucket: the engines' device steps, captured
+once as CUDA graphs and replayed where an engine captures.
 
 Counterpart of the JAX engines' ``_steps`` cache, where the whole chain "is
 ONE ``jax.jit`` graph with static shapes, compiled once per (batch bucket x
 source resolution) and reused forever" (``realtime_analytics_tpu/engine/
-detector.py``). A ``TorchYoloEngine`` keeps its steps in a ``StepCache``
-under JAX's keys, ``(B, H, W, "sel")`` for the selected step and ``(B, H,
-W)`` for the device-resize step. On the card an entry is a
-``CapturedStep``: the eager step run a few times on a side stream (the
-first-use kernel build, cuDNN's plans and the allocator settle there), then
-one call captured with ``torch.cuda.graph``, then replayed for every batch
-of its key. A replay is one ``cudaGraphLaunch`` where the eager step makes
-some 300 PyTorch calls and as many kernel launches.
+detector.py``). Every engine keeps its steps in a ``StepCache`` under
+JAX's keys (``BaseDetector`` in ``engine/detector.py``). On the card a
+YOLO engine's entry is a ``CapturedStep``: the eager step run a few times
+on a side stream (the first-use kernel build, cuDNN's plans and the
+allocator settle there), then one call captured with ``torch.cuda.graph``,
+then replayed for every batch of its key. A replay is one
+``cudaGraphLaunch`` where the eager step makes some 300 PyTorch calls and
+as many kernel launches.
 
 What a replay relies on:
 
@@ -33,8 +33,11 @@ what the eager step counts.
 
 ``EagerStep`` has the same interface over the eager function. An engine
 keeps it in the same cache where it does not capture, as decided by its own
-state: on the CPU (torch has no CPU graph), under a mesh, and on a
-graph-backed ONNX engine.
+state: on the CPU (torch has no CPU graph), under a mesh, on a graph-backed
+ONNX engine, and for the ResNet and temporal families.
+
+A host batch is an array or a tensor in host memory; a tensor is uploaded
+as it is (from a pinned buffer, one DMA), with a blocking copy.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,6 +59,7 @@ WARM_RUNS = 2  # eager runs of a step on a side stream before its capture
 _CAPTURE = threading.Lock()
 
 Step = Callable[[torch.Tensor], Tuple[torch.Tensor, ...]]
+HostBatch = Union[np.ndarray, torch.Tensor]
 
 
 class StepCache(dict):
@@ -133,7 +137,7 @@ class CapturedStep:
     def __init__(self, fn: Step, shape: Sequence[int], dtype: torch.dtype,
                  device: torch.device, *, key, cache: StepCache, graph_type=None):
         self.key, self.shape, self.dtype = key, tuple(int(v) for v in shape), dtype
-        self._lock = cache.lock
+        self._cache, self._lock = cache, cache.lock
         t0 = time.perf_counter()
         with _CAPTURE, torch.inference_mode():
             self.input = torch.zeros(self.shape, dtype=dtype, device=device)
@@ -150,6 +154,11 @@ class CapturedStep:
         for name, n in self.launches.items():  # a capture launches nothing
             LAUNCHES.add(name, -n)
         self.capture_s = time.perf_counter() - t0
+
+    def pool_mib(self) -> Optional[float]:
+        """MiB the card holds in the pool this step's graph shares with its
+        engine's others."""
+        return self._cache.pool_mib()
 
     def _replay(self, x: torch.Tensor) -> None:
         if tuple(x.shape) != self.shape or x.dtype != self.dtype:
@@ -180,26 +189,33 @@ class CapturedStep:
             self._replay(x)
             return tuple(t.clone() for t in self.outputs)
 
-    def run_host(self, frames: np.ndarray) -> Tuple[np.ndarray, ...]:
+    def run_host(self, frames: HostBatch) -> Tuple[np.ndarray, ...]:
         """The step on a host batch: uploaded into the static input, the
         outputs copied back to the host."""
         with self._stepping():
-            self._replay(torch.from_numpy(np.ascontiguousarray(frames)))
+            self._replay(_host_tensor(frames))
             return tuple(t.to("cpu", copy=True).numpy() for t in self.outputs)
 
 
 class EagerStep:
     """The eager step behind ``CapturedStep``'s interface. It allocates its
-    own tensors each call, so calls may run at once."""
+    own tensors each call, so calls may run at once. ``span`` names the
+    span of a run on a host batch."""
 
-    def __init__(self, fn: Step, device: torch.device) -> None:
-        self._fn, self._device = fn, device
+    def __init__(self, fn: Step, device: torch.device, span: str = "step") -> None:
+        self._fn, self._device, self._span = fn, device, span
 
     def __call__(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         with torch.inference_mode():
             return tuple(self._fn(x.to(self._device)))
 
-    def run_host(self, frames: np.ndarray) -> Tuple[np.ndarray, ...]:
-        with spans.span("step"), torch.inference_mode():
-            x = torch.from_numpy(np.ascontiguousarray(frames)).to(self._device)
+    def run_host(self, frames: HostBatch) -> Tuple[np.ndarray, ...]:
+        with spans.span(self._span), torch.inference_mode():
+            x = _host_tensor(frames).to(self._device)
             return tuple(t.cpu().numpy() for t in self._fn(x))
+
+
+def _host_tensor(frames: HostBatch) -> torch.Tensor:
+    if isinstance(frames, torch.Tensor):
+        return frames
+    return torch.from_numpy(np.ascontiguousarray(frames))

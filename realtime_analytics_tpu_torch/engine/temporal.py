@@ -49,7 +49,6 @@ from __future__ import annotations
 
 import logging
 import threading
-import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
@@ -73,8 +72,8 @@ from ..types import Detection, FramePacket, TemporalDetection
 from .detector import (
     BaseDetector,
     PreparedState,
-    _cheapest_bucket,
     bgr_unit_rgb,
+    by_frame_shape,
     compute_dtype_of,
     cv2_stretch,
     fp32_means_fp32,
@@ -160,6 +159,8 @@ class ClipStaging:
 class TorchTemporalEngine(PreparedState, BaseDetector):
     """CNN-LSTM / 3D-CNN / ConvGRU / SlowFast engine."""
 
+    _step_span = "clip_step"
+
     def __init__(self, config: DetectorConfig, params: Optional[Dict] = None,
                  devices: Optional[Sequence] = None):
         """``devices``: the mesh's devices under ``mesh_shape`` (see
@@ -203,9 +204,8 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
             1, int(config.sequence_length * (1.0 - config.temporal_overlap))
         )
         self._buffers: Dict[str, Deque[FramePacket]] = {}
-        self._bucket_cost_ms: Dict[Tuple[int, int], Dict[int, float]] = {}
+        self._init_steps()
         self._warned_no_cv2 = False
-        self.last_infer_ms = 0.0
         self.stats = ClipStats()
         self._staging = ClipStaging(self.device.type == "cuda")
         self._operands = {}
@@ -252,21 +252,22 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
             return False
         return True
 
-    def _resizes(self, src_hw) -> bool:
+    def _host_prepares(self, src_hw) -> bool:
         """Whether clips of ``src_hw`` frames are stretched on the host."""
         return tuple(src_hw) != tuple(self.input_hw) and self._host_resize_active()
 
     def _pack(self, sequences, idxs, src_hw, bucket: int) -> Tuple[torch.Tensor, bool]:
         """(buffer, resized): the group's clips in a staging buffer
-        (``ClipStaging.take``; the step reads its first max(n, bucket)), as
+        (``ClipStaging.take``; the step reads its first ``bucket``), as
         uint8 [T, h, w, 3] each, stretched frame by frame (cv2) on the host
-        when ``_resizes``, else stacked as they are, padded by repeating the
-        last. The caller gives the buffer back after the step."""
+        when ``_host_prepares``, else stacked as they are, padded by
+        repeating the last. The caller gives the buffer back after the
+        step."""
         n, t_len = len(idxs), self.config.sequence_length
-        resized = self._resizes(src_hw)
+        resized = self._host_prepares(src_hw)
         hw = tuple(self.input_hw) if resized else tuple(src_hw)
-        buf = self._staging.take(max(n, bucket), (t_len, *hw, 3))
-        out = buf.numpy()[:max(n, bucket)]
+        buf = self._staging.take(bucket, (t_len, *hw, 3))
+        out = buf.numpy()[:bucket]
         for j, i in enumerate(idxs):
             frames = [p.frame for p in sequences[i]]
             if resized:
@@ -302,38 +303,19 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
                                  self.mesh)
         return self._clip_head(x, b, logits)
 
-    def _run_bucket(self, bucket: int, clips: np.ndarray, resized: bool,
-                    logits: bool = False):
-        """Run the step on ``clips`` (packed to ``bucket``: ``_pack``) and
-        bring back the top-5 (scores, classes), and the logits when
-        ``logits``, as numpy."""
-        t0 = time.perf_counter()
-        with spans.span("clip_step"), torch.inference_mode():
-            extra = (True,) if logits else ()  # an exported step has no logits output
-            out = tuple(t.cpu().numpy() for t in self._mesh_call(self._step, clips, resized,
-                                                                 *extra))
-        self.last_infer_ms = (time.perf_counter() - t0) * 1e3
-        return out
+    def _step_key(self, batch: int, src_hw: Tuple[int, int], resized: bool,
+                  logits: bool = False):
+        """JAX's keys, and the port's logits variant tagged."""
+        key = super()._step_key(batch, src_hw, resized)
+        return (*key, "logits") if logits else key
 
-    def warmup(self, src_hw: Tuple[int, int], buckets=None) -> None:
-        """Run the clip step once per bucket, then time it (min of 3), on
-        the input ``predict_clips`` will upload."""
-        buckets = buckets or self.config.resolved_buckets
-        t_len = self.config.sequence_length
-        resized = self._resizes(src_hw)
-        hw = tuple(self.input_hw) if resized else tuple(src_hw)
-        costs = self._bucket_cost_ms.setdefault(tuple(src_hw), {})
-        for b in buckets:
-            rb = self._round_mesh(b)
-            clips = np.zeros((rb, t_len, *hw, 3), np.uint8)
-            self._run_bucket(rb, clips, resized)
-            cost = float("inf")
-            for _ in range(3):
-                self._run_bucket(rb, clips, resized)
-                cost = min(cost, self.last_infer_ms)
-            costs[b] = cost
-            logger.info("temporal warmup: bucket B=%d src=%s (host_resize=%s) step=%.1fms",
-                        rb, src_hw, resized, cost)
+    def _step_fn(self, key):
+        resized, logits = key[1] == "rsz", key[-1] == "logits"
+        hw = self.input_hw if resized else key[1:3]
+        # an exported step has no logits output
+        fn = ((lambda x: self._step(x, resized, True)) if logits
+              else (lambda x: self._step(x, resized)))
+        return fn, (key[0], self.config.sequence_length, *hw, 3)
 
     # -- sliding-window predict ----------------------------------------------
 
@@ -412,23 +394,19 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
             return self._predict_clips(sequences, return_logits)
 
     def _predict_clips(self, sequences, return_logits: bool):
-        by_shape: Dict[Tuple[int, int], List[int]] = {}
-        for i, seq in enumerate(sequences):
-            by_shape.setdefault(tuple(seq[0].frame.shape[:2]), []).append(i)
         results: List[List[Detection]] = [[] for _ in sequences]
         logits = [None] * len(sequences)
-        buckets = self.config.resolved_buckets
         t_len = self.config.sequence_length
-        for shape, idxs in by_shape.items():
+        for shape, idxs in by_frame_shape(seq[0].frame for seq in sequences).items():
             n = len(idxs)
             # more clips than the largest bucket run unpadded, as in JAX
-            bucket = self._round_mesh(_cheapest_bucket(buckets, n,
-                                                       self._bucket_cost_ms.get(shape, {})))
+            bucket = max(n, self._effective_bucket(n, shape))
             with spans.span("clip_pack"):
                 buf, resized = self._pack(sequences, idxs, shape, bucket)
-            clips = buf.numpy()[:max(n, bucket)]
+            clips = buf[:bucket]
             try:
-                out = self._run_bucket(bucket, clips, resized, return_logits)
+                out = self._run_step(self._step_key(bucket, shape, resized, return_logits),
+                                     clips)
             finally:
                 self._staging.give(buf)
             self.stats.add(clips=n, frames=n * t_len, nbytes=clips.nbytes)

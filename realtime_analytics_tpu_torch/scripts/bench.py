@@ -12,11 +12,10 @@ over host-picked input: 32 x 1080p uint8 BGR frames, picked 3x on the host
 pad + cast, the YOLOv8n forward (bf16, the stem-folded weights, kernels B3
 and B2), batched NMS (B1 twice, B6) and un-letterbox, at buckets 4, 16, 32,
 64 and 128. The step timed is the one serving runs: the engine's cached
-step of the bucket (``TorchYoloEngine._get_step_selected``), on the card
-``TorchYoloEngine._step_selected`` captured as a CUDA graph
-(``engine/graphs.py``): the batch copied into its static input, one graph
-replay, the outputs cloned. On the card the eager step (``_step_selected``
-called directly) is timed beside it under ``eager_*`` names.
+step of the bucket (``engine.step_for``), on the card the selected step
+captured as a CUDA graph (``engine/graphs.py``): the batch copied into its
+static input, one graph replay, the outputs cloned. On the card the eager
+step it was made from is timed beside it under ``eager_*`` names.
 JAX strips dispatch by looping the step K times inside one ``jit``. Here K
 calls run back to back with no host wait between them: one byte of the
 input is set on the card before each call (``x[0, 0, 0, 0].fill_(i %
@@ -61,8 +60,8 @@ the same pipeline at ``min(4, 2 x cores)`` streams for
 
 Section 3, the temporal families (CNN-LSTM and ConvGRU at 224, 3D-CNN and
 SlowFast at 112; 4 clips of T = 16) and ResNet-18 (224, batch 32), bf16,
-by the same differential over ``TorchTemporalEngine._step`` and
-``TorchResNetEngine._step`` on input already at the model's size.
+by the same differential over each engine's eager host-resized step
+(``engine.step_for``) on input already at the model's size.
 
 Section 4, ONNX-graph serving: a seeded foreign 6-conv detector at 256,
 batch 32, written as a graph with ``models/onnx_lite.write_onnx_model`` and
@@ -89,6 +88,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -212,18 +212,8 @@ def production_step(engine, src_hw: Tuple[int, int] = SRC_HW):
     ``predict_arrays`` runs (on the card a replayed CUDA graph), the
     selected step over host-picked input when the pick applies."""
     _, selected = engine.host_prepare(np.zeros((1, *src_hw, 3), np.uint8), src_hw)
-    get = engine._get_step_selected if selected else engine._get_step
-    return (lambda x: get(int(x.shape[0]), src_hw)(x)), selected
-
-
-def eager_step(engine, src_hw: Tuple[int, int] = SRC_HW):
-    """The same step called eagerly, as the cached step was made from."""
-    from ..ops.preprocess import letterbox_spec
-
-    _, selected = engine.host_prepare(np.zeros((1, *src_hw, 3), np.uint8), src_hw)
-    spec = letterbox_spec(src_hw, engine.input_hw)
-    fn = engine._step_selected if selected else engine._step_device_resize
-    return lambda x: fn(x, spec)
+    step_of = functools.lru_cache(None)(lambda b: engine.step_for(b, src_hw, selected)[0])
+    return (lambda x: step_of(int(x.shape[0]))(x)), selected
 
 
 # ---------------------------------------------------------------------------
@@ -336,9 +326,8 @@ def bench_device_throughput(engine, settings: Settings) -> Tuple[List[Dict], int
     the engine captures its steps (on the card), of the eager step on the
     same input (``eager_*``; on the CPU the cached step is the eager step).
     Returns (rows, bytes uploaded a frame)."""
-    steps = {"": production_step(engine)[0]}
-    if engine._captures():
-        steps["eager_"] = eager_step(engine)
+    from ..engine.graphs import EagerStep
+
     probe, _ = engine.host_prepare(np.zeros((1, *SRC_HW, 3), np.uint8), SRC_HW)
     rng = np.random.default_rng(0)
     results = []
@@ -348,9 +337,11 @@ def bench_device_throughput(engine, settings: Settings) -> Tuple[List[Dict], int
         row: Dict = {"device_batch": batch}
         with torch.inference_mode():
             x = torch.from_numpy(host).to(engine.device)
+            step, eager = engine.step_for(batch, SRC_HW)
+            steps = {"": step} if isinstance(step, EagerStep) else {"": step, "eager_": eager}
             for prefix, step in steps.items():
                 run = k_call_runner(step, x)
-                run(1)  # first use: the capture (kernel build, allocator, cuDNN plans)
+                run(1)  # first use: the kernel build, allocator, cuDNN plans
                 run(K_ITERS)
                 t1, tk = best_of(run, 1), best_of(run, K_ITERS)
                 batch_ms = (tk - t1) / (K_ITERS - 1) * 1e3
@@ -629,7 +620,7 @@ def bench_temporal(yolo_frame_ms: float, device: str) -> Dict:
         t_len = cfg.sequence_length
         x = torch.from_numpy(rng.integers(
             0, 256, (clip_batch, t_len, side, side, 3), dtype=np.uint8)).to(engine.device)
-        ms, seq_ms = _diff_time_step(lambda c: engine._step(c, True), x)
+        ms, seq_ms = _diff_time_step(engine.step_for(clip_batch, SRC_HW, prepared=True)[1], x)
         clip_ms = ms / clip_batch
         row = {
             "model": family,
@@ -671,7 +662,7 @@ def bench_resnet(device: str) -> Dict:
     ))
     x = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (batch, 224, 224, 3), dtype=np.uint8)).to(engine.device)
-    ms, seq_ms = _diff_time_step(lambda f: engine._step(f, True), x)
+    ms, seq_ms = _diff_time_step(engine.step_for(batch, SRC_HW, prepared=True)[1], x)
     log(f"section 3: resnet18: {ms:.2f} ms a batch of {batch}")
     return {
         "model": "resnet18",

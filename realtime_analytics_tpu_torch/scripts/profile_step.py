@@ -133,14 +133,11 @@ def stage_times(eng, frames: np.ndarray, reps: int) -> dict:
 def eager_predict(eng, frames: np.ndarray) -> list:
     """``predict_arrays`` with the eager step called in place of the cached
     one: host pick, upload, the step, the copies back."""
-    from ..ops.preprocess import letterbox_spec
-
     src_hw = frames.shape[1:3]
-    spec = letterbox_spec(src_hw, eng.input_hw)
     host, selected = eng.host_prepare(frames, src_hw)
-    fn = eng._step_selected if selected else eng._step_device_resize
+    fn = eng.step_for(len(host), src_hw, selected)[1]
     with torch.inference_mode():
-        return [t.cpu().numpy() for t in fn(torch.from_numpy(host).to(eng.device), spec)]
+        return [t.cpu().numpy() for t in fn(torch.from_numpy(host).to(eng.device))]
 
 
 def step_times(eng, frames: np.ndarray, reps: int, predict=None) -> list:

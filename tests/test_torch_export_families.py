@@ -311,7 +311,7 @@ def test_more_graph_kinds_export(kind, tmp_path):
         fields = ("boxes_xyxy", "scores", "class_ids", "num_valid")
     else:
         served = create_detector(_temporal_cfg(rvae, **kw))
-        run = [lambda e: e._run_bucket(2, inputs, False)]
+        run = [lambda e: e.step_for(2, src)[0].run_host(inputs)]
     for fn in run * 2:  # each engine's first run of the shapes, then the comparison
         a, b = fn(live), fn(served)
     if kind == "end_to_end_nms":

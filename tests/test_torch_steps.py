@@ -1,9 +1,10 @@
-"""The YOLO engines' step cache (``engine/graphs.py``) on the CPU.
+"""The engines' step cache (``engine/graphs.py``) on the CPU.
 
 The port keeps one prepared step per key, as the JAX engine keeps one
-``jax.jit`` program: ``_steps`` holds the same keys as
-``JaxYoloEngine._steps`` after the same warmup (host pick, device resize,
-tiling). On the CPU an entry is the eager step itself, so the cached step
+``jax.jit`` program: ``_steps`` holds the same keys as the JAX engine's
+``_steps`` after the same warmup (YOLO: host pick, device resize, tiling;
+ResNet and temporal: host-resized and full frames). On the CPU an entry is
+the eager step itself, so the cached step
 is bit-equal to calling it; on the card it is a ``CapturedStep``, whose
 bookkeeping (static input, shape and dtype checks, the lock, the launch
 counts a replay adds, the copies of its outputs) runs here with a stand-in
@@ -21,18 +22,21 @@ import pytest
 import torch
 
 from realtime_analytics_tpu.config import DetectorConfig as JaxConfig
-from realtime_analytics_tpu.engine.detector import JaxYoloEngine
+from realtime_analytics_tpu.engine.detector import JaxResNetEngine, JaxYoloEngine
+from realtime_analytics_tpu.engine.temporal import JaxTemporalEngine
 from realtime_analytics_tpu.ops.boxes import unletterbox_boxes as jax_unletterbox
-from realtime_analytics_tpu_torch.config import DetectorConfig
+from realtime_analytics_tpu_torch.config import DetectorConfig, StreamConfig
 from realtime_analytics_tpu_torch.engine import graphs
-from realtime_analytics_tpu_torch.engine.detector import TorchYoloEngine
+from realtime_analytics_tpu_torch.engine.detector import TorchResNetEngine, TorchYoloEngine
 from realtime_analytics_tpu_torch.engine.export import (
     ExportedYoloEngine,
     export_serving_artifact,
 )
+from realtime_analytics_tpu_torch.engine.temporal import TorchTemporalEngine
 from realtime_analytics_tpu_torch.ops._cuda import LAUNCHES
 from realtime_analytics_tpu_torch.ops.boxes import unletterbox_boxes
 from realtime_analytics_tpu_torch.ops.preprocess import letterbox_spec
+from realtime_analytics_tpu_torch.types import FramePacket
 
 INPUT = 64
 
@@ -121,6 +125,56 @@ def test_steps_keys_match_jax(case):
     assert all(isinstance(s, graphs.EagerStep) for s in port._steps.values())
 
 
+# ResNet-18 at 64 and CNN-LSTM clips of 4 at 32x32, as their parity tests
+CLASSIFIERS = {
+    "resnet": (JaxResNetEngine, TorchResNetEngine,
+               dict(model_path="resnet18-seeded", model_type="resnet", input_size=[64, 64],
+                    resnet_num_classes=10)),
+    "temporal": (JaxTemporalEngine, TorchTemporalEngine,
+                 dict(model_path="absent-temporal.npz", model_type="cnn_lstm",
+                      input_size=[32, 32], num_action_classes=5, sequence_length=4)),
+}
+
+
+@pytest.mark.parametrize("host_resize", ["on", "off"], ids=["host_resized", "full_frame"])
+@pytest.mark.parametrize("family", sorted(CLASSIFIERS))
+def test_classifier_steps_keys_match_jax(family, host_resize):
+    """The ResNet and temporal engines keep their steps in ``_steps`` under
+    JAX's keys, ``(B, "rsz")`` or ``(B, H, W)``, each an ``EagerStep``."""
+    jax_cls, port_cls, over = CLASSIFIERS[family]
+    kw = dict(device="cpu", warmup=False, precision="fp32", batch_buckets=[1, 2],
+              max_batch_size=2, host_resize=host_resize, **over)
+    jax_engine, port = jax_cls(JaxConfig(**kw)), port_cls(DetectorConfig(**kw))
+    src = (48, 40)
+    jax_engine.warmup(src)
+    port.warmup(src)
+    want = {(1, "rsz"), (2, "rsz")} if host_resize == "on" else {(1, *src), (2, *src)}
+    assert set(port._steps) == set(jax_engine._steps) == want
+    assert set(port._bucket_cost_ms) == set(jax_engine._bucket_cost_ms) == {src}
+    assert set(port._bucket_cost_ms[src]) == set(jax_engine._bucket_cost_ms[src]) == {1, 2}
+    assert all(isinstance(s, graphs.EagerStep) for s in port._steps.values())
+    assert not port._captures()
+
+
+def test_temporal_logits_step_has_its_own_key():
+    """The port's logits variant, which JAX has not, is a key of its own;
+    the step of a call that does not ask for logits brings back two
+    outputs, the top-5 scores and classes."""
+    _, _, over = CLASSIFIERS["temporal"]
+    eng = TorchTemporalEngine(DetectorConfig(
+        device="cpu", warmup=False, precision="fp32", batch_buckets=[1], max_batch_size=1,
+        host_resize="off", **over))
+    stream = StreamConfig(name="cam")
+    clip = [FramePacket(stream, f, i, 0.0) for i, f in enumerate(_frames((48, 40), n=4))]
+    eng.predict_clips([clip])
+    _, logits = eng.predict_clips([clip], return_logits=True)
+    assert set(eng._steps) == {(1, 48, 40), (1, 48, 40, "logits")}
+    clips = np.stack([np.stack([p.frame for p in clip])])
+    assert len(eng._steps[(1, 48, 40)].run_host(clips)) == 2
+    got = eng._steps[(1, 48, 40, "logits")].run_host(clips)[2]
+    np.testing.assert_array_equal(got, logits)
+
+
 def test_cached_step_is_the_eager_step_bit_for_bit():
     eng = TorchYoloEngine(DetectorConfig(**_kw()))
     for hw, selected in (((192, 192), True), ((100, 90), False)):
@@ -157,6 +211,25 @@ def test_an_engine_that_captures_serves_what_the_eager_engine_serves(hw, monkeyp
         want = eager.predict_arrays(frames)
         for field in ("boxes_xyxy", "scores", "class_ids", "num_valid"):
             np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+
+
+def test_an_eager_twin_serves_eager_steps_of_its_own(monkeypatch):
+    """``eager_twin`` (what ``chip_smoke.py`` holds a captured step to):
+    the same model and state, a cache of eager steps and bucket costs of
+    its own, the captured engine's results bit for bit."""
+    captured = TorchYoloEngine(DetectorConfig(**_kw()))
+    captured._steps._pool = ("stand-in",)
+    monkeypatch.setattr(TorchYoloEngine, "_captures", lambda self: self is captured)
+    monkeypatch.setattr(graphs, "CudaGraph", StandInGraph)
+    captured.warmup((192, 192))
+    twin = captured.eager_twin()
+    assert twin.model is captured.model and twin._bucket_cost_ms == {}
+    frames = _frames((192, 192), seed=3)
+    got, want = twin.predict_arrays(frames), captured.predict_arrays(frames)
+    assert [type(s) for s in twin._steps.values()] == [graphs.EagerStep]
+    assert all(isinstance(s, graphs.CapturedStep) for s in captured._steps.values())
+    for field in ("boxes_xyxy", "scores", "class_ids", "num_valid"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
 
 
 # -- unletterbox_boxes ----------------------------------------------------------
