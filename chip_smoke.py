@@ -108,7 +108,11 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
 10. the four temporal families (CNN-LSTM and ConvGRU at 224, 3D-CNN and
     SlowFast at 112; T = 16, 400 classes) on 4 clips of 16 synthetic 1080p
     frames with ``host_resize: off``, top-5 against ``pallas_preprocess:
-    off``;
+    off``; then the clip pack on the host at ``sf50-clips-b32``'s shapes
+    (32 clips of 32 224x224 frames at stride 2 from a ring of 256, into a
+    pinned buffer): numpy's stack a clip against the native gather, byte
+    for byte, with the host's usable cores and the gather's OpenMP threads
+    (``check_clip_pack``);
 11. generic ONNX-graph serving ("onnx"): the seeded YOLOv8n written by the
     port's ``yolo_to_onnx`` (``images`` [N, 3, 640, 640] -> ``output0``
     [N, 84, 8400], the stock Ultralytics layout) served through
@@ -2109,6 +2113,57 @@ def run_temporal(frames):
     return paths, out
 
 
+def check_clip_pack(clips: int = 32, t_len: int = 32, stride: int = 2, hw: int = 224,
+                    pool: int = 256, reps: int = 15) -> dict:
+    """The host's clip pack at ``sf50-clips-b32``'s shapes, as
+    ``TorchTemporalEngine._pack`` runs it: numpy's ``np.stack`` a clip and
+    the native gather of every frame in one call (``native.frames``), each
+    into the same pinned buffer, in turns; ms median and min, byte-equal."""
+    from realtime_analytics_tpu_torch.native import frames as native_frames
+
+    ring = np.random.default_rng(0).integers(0, 256, (pool, hw, hw, 3), dtype=np.uint8)
+    buf = torch.empty((clips, t_len, hw, hw, 3), dtype=torch.uint8, pin_memory=True)
+    out = buf.numpy()
+    steps = stride * np.arange(t_len)
+    rng = np.random.default_rng(1)
+
+    def draw():  # a call's clips: each a frame view of the ring, as FramePackets hold them
+        return [[ring[j] for j in (o + steps) % pool] for o in rng.integers(0, pool, clips)]
+
+    def stack(seqs):
+        for j, seq in enumerate(seqs):
+            np.stack(seq, out=out[j])
+
+    def gather(seqs):
+        if not native_frames.gather([f for seq in seqs for f in seq],
+                                    out.reshape(clips * t_len, hw, hw, 3)):
+            raise RuntimeError("the native gather did not take the clips (no build?)")
+
+    times = {"numpy": [], "gather": []}
+    equal = True
+    for _ in range(reps):
+        seqs = draw()
+        want = np.stack([np.stack(s) for s in seqs])
+        for name, fn in (("numpy", stack), ("gather", gather)):
+            out[...] = 0
+            t0 = time.perf_counter()
+            fn(seqs)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            equal &= bool(np.array_equal(out, want))
+    res = dict(shape=[clips, t_len, hw, hw, 3], mb=out.nbytes / 1e6, pinned=buf.is_pinned(),
+               cores=len(os.sched_getaffinity(0)), omp_threads=native_frames.threads(),
+               byte_equal=equal, reps=reps)
+    for name, ts in times.items():
+        res[f"{name}_ms_median"], res[f"{name}_ms_min"] = statistics.median(ts), min(ts)
+    res["speedup"] = res["numpy_ms_median"] / res["gather_ms_median"]
+    log(f"clip pack b{clips}: numpy {res['numpy_ms_median']:.2f} ms, gather "
+        f"{res['gather_ms_median']:.2f} ms on {res['omp_threads']} threads "
+        f"({res['cores']} cores), byte-equal {equal}")
+    if not equal:
+        raise AssertionError("the native gather packed other bytes than np.stack")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 11: generic ONNX-graph serving (B4 and B1)
 # ---------------------------------------------------------------------------
@@ -3967,6 +4022,7 @@ def main() -> int:
     temporal_paths, temporal = run_temporal(frames)
     paths.update(temporal_paths)
     log("temporal " + json.dumps(dict(temporal, card=card)))
+    log("clip_pack " + json.dumps(dict(check_clip_pack(), card=card)))
     lap("temporal")
     onnx_paths, onnx = run_onnx(params, frames, resnet_params)
     paths.update(onnx_paths)

@@ -33,10 +33,11 @@ shard of their frames), conv and dense channels over tp (graphs: dp only).
 Tracing (``telemetry/spans.py``; on while a profiler records): a
 ``predict_clips`` or ``predict_packets`` call is an engine batch
 (``spans.engine_batch``) holding, per group of frame shape, a
-``clip_pack`` span (the host assembles the clips: stack or host resize,
-and the padding to the bucket) and a ``clip_step`` span (the upload, the
-forward, the top-5 and logits coming back). ``stats`` (``ClipStats``)
-counts calls, clips, the clips' frames packed on the host and the bytes
+``clip_pack`` span (the host assembles the clips: one native gather of
+every frame, a stack, or host resize, and the padding to the bucket) and
+a ``clip_step`` span (the upload, the forward, the top-5 and logits coming
+back). ``stats`` (``ClipStats``) counts calls, clips, the clips' frames
+packed on the host, those the native gather copied and the bytes
 uploaded, always, and the model's convs run as stacked 2D convs
 (``models/slowfast.py``). ``predict_clips(..., return_logits=True)`` also
 returns the fp32 logits the step computed, clip by clip.
@@ -66,6 +67,7 @@ from ..models.weights import (
     temporal_params_from_jax,
     temporal_synthetic_params,
 )
+from ..native import frames as native_frames
 from ..ops.letterbox import stretch_spec
 from ..telemetry import spans
 from ..types import Detection, FramePacket, TemporalDetection
@@ -92,23 +94,28 @@ PIN_BYTES = 256 << 20  # an engine's staging buffers pinned in host memory, at m
 @dataclass
 class ClipStats:
     """The engine's counters: ``predict_clips`` calls, clips served (no
-    padding), their frames packed on the host (clips x T), and the bytes of
-    the clip arrays uploaded (padding included); ``stacked_convs``, the
-    model's convs run as 2D convs over stacked frames so far, warmup
-    included (``models/slowfast.py``: the two stems a step on the card)."""
+    padding), their frames packed on the host (clips x T), the frames the
+    pack's native gather copied (padding included; 0 where the pack stacks
+    with numpy or resizes), and the bytes of the clip arrays uploaded
+    (padding included); ``stacked_convs``, the model's convs run as 2D convs
+    over stacked frames so far, warmup included (``models/slowfast.py``: the
+    two stems a step on the card)."""
 
     calls: int = 0
     clips: int = 0
     frames_packed: int = 0
+    frames_gathered: int = 0
     bytes_uploaded: int = 0
     stacked_convs: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
 
-    def add(self, calls: int = 0, clips: int = 0, frames: int = 0, nbytes: int = 0) -> None:
+    def add(self, calls: int = 0, clips: int = 0, frames: int = 0, nbytes: int = 0,
+            gathered: int = 0) -> None:
         with self._lock:
             self.calls += calls
             self.clips += clips
             self.frames_packed += frames
+            self.frames_gathered += gathered
             self.bytes_uploaded += nbytes
 
 
@@ -260,14 +267,22 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
         """(buffer, resized): the group's clips in a staging buffer
         (``ClipStaging.take``; the step reads its first ``bucket``), as
         uint8 [T, h, w, 3] each, stretched frame by frame (cv2) on the host
-        when ``_host_prepares``, else stacked as they are, padded by
-        repeating the last. The caller gives the buffer back after the
-        step."""
+        when ``_host_prepares``, else copied as they are, padded by
+        repeating the last: every frame of the bucket in one native call
+        (``native.frames.gather``, counted in ``stats.frames_gathered``)
+        where the frames allow it, else a numpy stack a clip. The caller
+        gives the buffer back after the step."""
         n, t_len = len(idxs), self.config.sequence_length
         resized = self._host_prepares(src_hw)
         hw = tuple(self.input_hw) if resized else tuple(src_hw)
         buf = self._staging.take(bucket, (t_len, *hw, 3))
         out = buf.numpy()[:bucket]
+        if not resized:
+            order = [*idxs, *[idxs[-1]] * (bucket - n)]
+            if native_frames.gather([p.frame for i in order for p in sequences[i]],
+                                    out.reshape(bucket * t_len, *hw, 3)):
+                self.stats.add(gathered=bucket * t_len)
+                return buf, resized
         for j, i in enumerate(idxs):
             frames = [p.frame for p in sequences[i]]
             if resized:
