@@ -44,7 +44,12 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
    sheet); SlowFast R50's two 3-channel stems at b32, each alone as cuDNN's
    conv3d and as the 2D conv over stacked frames the model runs on the card
    (their times, kernels and agreement), and the b32 forward on each route
-   in turns (``check_slowfast_stems``);
+   in turns (``check_slowfast_stems``); B8 pooled attention with the
+   decomposed relative-position bias at each of MViTv2-S's seven block
+   shapes at b32, against the plain route in fp32, timed beside the plain
+   route in bf16 and ``F.scaled_dot_product_attention`` given the
+   materialised bias as its mask, with its bound and ptxas's registers
+   (``check_rel_pos_attention``);
 4. the main path: ``TorchYoloEngine`` (YOLOv8n, 640, bf16, bucket 32,
    seeded He-scaled weights) on 32 synthetic 1080p frames through
    ``predict_arrays`` (host pick -> selected step), held against the same
@@ -108,7 +113,10 @@ It imports nothing of JAX and nothing of the JAX package. Phases, in order:
 10. the four temporal families (CNN-LSTM and ConvGRU at 224, 3D-CNN and
     SlowFast at 112; T = 16, 400 classes) on 4 clips of 16 synthetic 1080p
     frames with ``host_resize: off``, top-5 against ``pallas_preprocess:
-    off``; then the clip pack on the host at ``sf50-clips-b32``'s shapes
+    off``; MViTv2-S as ``mvit2s-clips-b32`` serves it (``run_mvit``: 32
+    clips of 16 frames decoded at 224, bf16; B8 exactly once a block, 16
+    launches a step, and ``ClipStats.fused_attentions`` moved by 16); then
+    the clip pack on the host at ``sf50-clips-b32``'s shapes
     (32 clips of 32 224x224 frames at stride 2 from a ring of 256, into a
     pinned buffer): numpy's stack a clip against the native gather, byte
     for byte, with the host's usable cores and the gather's OpenMP threads
@@ -223,7 +231,8 @@ kernels it runs were launched (the YOLO v8 steps: ``decode_v8`` exactly
 once a step; every YOLO step: ``nms_keep`` once) and, on the int8, v5, ONNX and artifact paths,
 unless the kernels those paths skip were not. A kernel's ``launches`` in
 the kernels line is its count on one step of the path its row times (the
-main path for B1-B3 and B6, the device-resize step for B4), and
+main path for B1-B3, B6 and B7, the device-resize step for B4, the
+``mvitv2_s`` clip step for B8), and
 ``launches_by_path`` holds each path's own count. Any failure
 exits non-zero without the last line; so does a machine with no visible
 CUDA card, or a directory without the package.
@@ -236,6 +245,7 @@ import asyncio
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import signal
@@ -1005,6 +1015,94 @@ def check_slowfast_stems(gen):
     del model, clips, x, logits
     torch.cuda.empty_cache()
     return out
+
+
+def attention_ptxas(lines):
+    """Registers, spills and barriers of B8's kernel, from nvcc's ``-Xptxas
+    -v`` lines (its shared memory is dynamic: ``smem_bytes`` per shape)."""
+    out, on = [], False
+    for line in lines:
+        if "Compiling entry function" in line:
+            on = "rel_pos_attention_kernel" in line
+        elif on and ("Used" in line or "spill" in line):
+            out.append(line.split("info    :")[-1].strip())
+    return "; ".join(out)
+
+
+def check_rel_pos_attention(gen):
+    """B8 (``csrc/attention.cu``) at every distinct block shape of MViTv2-S
+    at b32 (the clip cell's): against the plain route computed in fp32 from
+    the same bf16 operands (``max_err``; the plain route in bf16 beside it,
+    ``plain_bf16_max_err``), and timed beside the plain route in bf16 (the
+    bias materialised, softmax, ``@ v``, ``+ q``: ``plain_ms``) and
+    ``F.scaled_dot_product_attention`` given the materialised bias as its
+    ``attn_mask`` (the mask made outside the timing, the residual not added:
+    ``sdpa_mask_ms``), with its bound (4 heads Nq Nk 96 FLOPs over the bf16
+    peak; q, k, v, the tables and the output once over HBM's). ``step``
+    sums each over the 16 blocks of one b32 step. Returns the kernels line's
+    row at block 0's shape (``library_ms``: SDPA with the mask)."""
+    import torch.nn.functional as F
+
+    from realtime_analytics_tpu_torch.models.mvit import MViTSpec
+    from realtime_analytics_tpu_torch.ops import _cuda
+    from realtime_analytics_tpu_torch.ops.attention import (
+        rel_pos_attention,
+        rel_pos_attention_plain,
+        rel_pos_bias,
+    )
+
+    scale = 96 ** -0.5
+    counts = Counter((s.heads, s.q_thw, s.kv_thw) for s in MViTSpec().blocks())
+
+    def bf(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    rows, step = [], dict(kernel_ms=0.0, plain_ms=0.0, sdpa_mask_ms=0.0, bound_ms=0.0)
+    for (heads, q_thw, kv_thw), blocks in sorted(counts.items()):
+        nq, nk = 1 + math.prod(q_thw), 1 + math.prod(kv_thw)
+        ops = (bf(N, heads, nq, 96), bf(N, heads, nk, 96), bf(N, heads, nk, 96),
+               bf(N, heads, nq - 1, kv_thw[0]), bf(N, heads, nq - 1, kv_thw[1]),
+               bf(N, heads, nq - 1, kv_thw[2]))
+        want = rel_pos_attention_plain(*(t.float() for t in ops), scale)
+        err = (rel_pos_attention(*ops, scale).float() - want).abs().max().item()
+        plain_err = (rel_pos_attention_plain(*ops, scale).float() - want).abs().max().item()
+        tol = 0.02 + 0.01 * want.abs().max().item()  # tests/test_torch_kernels_cuda.py's
+        del want
+        torch.cuda.empty_cache()
+        assert err <= tol, f"B8 differs from the plain route by {err} at {heads, q_thw, kv_thw}"
+        mask = torch.zeros(N, heads, nq, nk, dtype=torch.bfloat16, device="cuda")
+        mask[:, :, 1:, 1:] = rel_pos_bias(*ops[3:])
+        flops = 4.0 * N * heads * nq * nk * 96
+        nbytes = 2.0 * (2 * ops[0].numel() + ops[1].numel() + ops[2].numel()
+                        + sum(t.numel() for t in ops[3:]))
+        b_ms, b_by = bound(nbytes, flops, torch.bfloat16)
+        row = dict(heads=heads, q=list(q_thw), kv=list(kv_thw), nq=nq, nk=nk, blocks=blocks,
+                   max_err=err, plain_bf16_max_err=plain_err,
+                   smem_bytes=(128 + 4 * 64) * 104 * 2
+                   + (128 + 2 * 64) * ((sum(kv_thw) + 15) // 16 * 16 + 8) * 2,
+                   kernel_ms=cuda_ms(lambda: rel_pos_attention(*ops, scale), iters=20),
+                   plain_ms=cuda_ms(lambda: rel_pos_attention_plain(*ops, scale), iters=5,
+                                    warmup=2),
+                   sdpa_mask_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                       ops[0], ops[1], ops[2], attn_mask=mask, scale=scale), iters=10, warmup=2),
+                   bound_ms=b_ms, bound_by=b_by)
+        row["roofline_pct"] = 100.0 * b_ms / row["kernel_ms"]
+        rows.append(row)
+        for key in step:
+            step[key] += blocks * row[key]
+        del ops, mask
+        torch.cuda.empty_cache()
+    step["roofline_pct"] = 100.0 * step["bound_ms"] / step["kernel_ms"]
+    out = dict(shapes=rows, b32_step=step,
+               ptxas=attention_ptxas(_cuda.build().ptxas), card=CARD)
+    log("B8 " + json.dumps(out))
+    first = rows[0]  # block 0's shape, the step's largest
+    return dict(name="rel_pos_attention", route="cuda",
+                source="realtime_analytics_tpu_torch/csrc/attention.cu",
+                replaces="none: the plain route (ops/attention.py) materialises the bias",
+                max_abs_err=max(r["max_err"] for r in rows), ms=first["kernel_ms"],
+                plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], library_ms=first["sdpa_mask_ms"])
 
 
 def stem_ptxas(lines):
@@ -2110,7 +2208,56 @@ def run_temporal(frames):
         log(f"{family} ({hw}x{hw}, bf16): launches {launches['letterbox']}, top-5 equal on "
             f"{top5}/{clips} clips against B4 off (reported), clip step {step_ms:.1f} ms")
         del eng
+    paths["mvitv2_s"], out["mvitv2_s"] = run_mvit()
     return paths, out
+
+
+def run_mvit(clips: int = 32, t_len: int = 16, stride: int = 4, hw: int = 224):
+    """MViTv2-S as ``mvit2s-clips-b32`` serves it: ``predict_clips`` on 32
+    clips of 16 seeded frames decoded at 224 (stride 4 of a 64-frame
+    window), bf16, seeded weights; the step's launches counted from a reset
+    just before it (B8 once a block, 16) and ``ClipStats.fused_attentions``
+    moved by as many; the call timed on the host clock."""
+    from realtime_analytics_tpu_torch.config import DetectorConfig, StreamConfig
+    from realtime_analytics_tpu_torch.engine.temporal import TorchTemporalEngine
+    from realtime_analytics_tpu_torch.models.temporal import build_temporal
+    from realtime_analytics_tpu_torch.models.weights import temporal_synthetic_params
+    from realtime_analytics_tpu_torch.ops import _cuda
+    from realtime_analytics_tpu_torch.types import FramePacket
+
+    model = build_temporal("mvitv2_s", 400, t_len=t_len, crop=hw)
+    blocks = len(model.blocks)
+    params = temporal_synthetic_params(model, seed=0)
+    del model
+    torch.cuda.reset_peak_memory_stats()
+    ring = np.random.default_rng(0).integers(0, 256, (t_len * stride, hw, hw, 3), np.uint8)
+    seqs = [[FramePacket(stream=StreamConfig(name=f"cam-{c}", url="synthetic://"),
+                         frame=ring[(c + t * stride) % len(ring)], frame_id=t * stride,
+                         timestamp=t * stride / 25.0) for t in range(t_len)]
+            for c in range(clips)]
+    eng = TorchTemporalEngine(DetectorConfig(
+        model_type="mvitv2_s", model_path="mvitv2_s-chip-smoke-seeded", device="cuda",
+        input_size=[hw, hw], num_action_classes=400, sequence_length=t_len,
+        sequence_stride=stride, batch_buckets=[clips], max_batch_size=clips, warmup=False,
+        confidence_threshold=1e-6), params=params)
+    eng.predict_clips(seqs)
+    torch.cuda.synchronize()
+    fused = eng.stats.fused_attentions
+    _cuda.LAUNCHES.reset()
+    got = eng.predict_clips(seqs)
+    launches = _cuda.LAUNCHES.snapshot()
+    require_counts("mvitv2_s clip path", launches, dict(rel_pos_attention=blocks))
+    assert eng.stats.fused_attentions - fused == blocks, "a block's attention left B8"
+    assert all(len(c) == 5 for c in got), "a clip lost its top-5"
+    step_ms, step_min = timed_ms(lambda: eng.predict_clips(seqs), 5)
+    out = dict(input=hw, clips=clips, t=t_len, launches=launches, clip_call_ms_median=step_ms,
+               clip_call_ms_min=step_min, footage_fps=clips * t_len * stride / step_ms * 1e3,
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    log(f"mvitv2_s ({hw}x{hw}, b{clips}, bf16): B8 {launches['rel_pos_attention']} a step, "
+        f"clip call {step_ms:.1f} ms")
+    del eng
+    torch.cuda.empty_cache()
+    return launches, out
 
 
 def check_clip_pack(clips: int = 32, t_len: int = 32, stride: int = 2, hw: int = 224,
@@ -2429,7 +2576,8 @@ def run_onnx(params, frames, resnet_params):
     # B6 has no knob (NMS's keep pass is the kernel on the card); the other
     # kernels stay off
     assert _cuda.LAUNCHES.snapshot() == dict(row_gather=0, decode_v8=0, fused_stem=0,
-                                             letterbox=0, nms_keep=1, conv_epilogue=0), \
+                                             letterbox=0, nms_keep=1, conv_epilogue=0,
+                                             rel_pos_attention=0), \
         "kernels launched with B4 and B1 off"
     _, off_score, off_box = hold("onnx graph fp32, B4 + B1 on against off", res, res_off,
                                  score_tol=1e-5, box_tol=1e-3)
@@ -3967,6 +4115,7 @@ def main() -> int:
                    check_letterbox(gen), check_nms_keep(gen), check_epilogue(gen)]
         check_epilogue_relu(gen)
         check_slowfast_stems(gen)
+        kernels.append(check_rel_pos_attention(gen))
         torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -4073,9 +4222,11 @@ def main() -> int:
     log("launches by path " + json.dumps(paths))
     log("phase wall s " + json.dumps(dict(walls, total_since_start=time.perf_counter() - t0)))
     # launches: one step of the path whose shapes the row times (the main
-    # path for B1-B3, B6 and B7, the device-resize step for B4);
-    # launches_by_path: each path's own count, read just after its own reset
-    for row, path in zip(kernels, ("main", "main", "main", "device_resize", "main", "main")):
+    # path for B1-B3, B6 and B7, the device-resize step for B4, MViTv2-S's
+    # b32 clip step for B8); launches_by_path: each path's own count, read
+    # just after its own reset
+    for row, path in zip(kernels, ("main", "main", "main", "device_resize", "main", "main",
+                                   "mvitv2_s")):
         row["launches"] = paths[path][row["name"]]
         row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",

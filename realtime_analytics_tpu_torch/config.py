@@ -175,11 +175,15 @@ VALID_MODEL_TYPES = {
     "conv_gru",
     "slow_fast",
     "slowfast_r50",
+    "mvitv2_s",
 }
 
-# slowfast_r50: the published SlowFast R50 8x8 (models/slowfast.py), which
-# the JAX package does not have; slow_fast is the JAX package's small model
-TEMPORAL_MODEL_TYPES = {"cnn_lstm", "3d_cnn", "conv_gru", "slow_fast", "slowfast_r50"}
+# slowfast_r50: the published SlowFast R50 8x8 (models/slowfast.py), and
+# mvitv2_s: the published MViTv2-S 16x4 (models/mvit.py), which the JAX
+# package does not have; slow_fast is the JAX package's small model
+TEMPORAL_MODEL_TYPES = {"cnn_lstm", "3d_cnn", "conv_gru", "slow_fast", "slowfast_r50",
+                        "mvitv2_s"}
+MVIT_CROP_MULTIPLE = 32  # mvitv2_s: the patch stride 4 times three q strides of 2
 SLOWFAST_ALPHA = 4  # slowfast_r50's slow pathway takes every 4th of T frames
 
 
@@ -375,6 +379,28 @@ class DetectorConfig:
             if self.mesh_shape is not None:
                 raise ConfigError("slowfast_r50 is served on one device: mesh_shape is not "
                                   "supported for it")
+        if self.model_type == "mvitv2_s":
+            if self.sequence_length % 2:
+                raise ConfigError(
+                    "mvitv2_s needs an even sequence_length (its patch embedding strides "
+                    f"time by 2), got {self.sequence_length}")
+            h, w = self.resolved_input_size
+            if h != w or h % MVIT_CROP_MULTIPLE:
+                raise ConfigError(
+                    f"mvitv2_s needs a square input_size that is a multiple of "
+                    f"{MVIT_CROP_MULTIPLE} (its token grids halve three times after the "
+                    f"patch stride of 4), got {[h, w]}")
+            if self.mesh_shape is not None:
+                raise ConfigError("mvitv2_s is served on one device: mesh_shape is not "
+                                  "supported for it")
+            # on the card every block's attention is B8, which takes bf16
+            # alone; auto and cuda never fall back to the CPU (pick_device)
+            bf16 = self.precision == "bf16" or (self.precision == "fp32" and self.half)
+            if str(self.device).lower() != "cpu" and not bf16:
+                raise ConfigError(
+                    f"mvitv2_s on a CUDA device runs in bf16 (its attention kernel takes "
+                    f"bf16 alone): set precision: bf16, got precision: {self.precision}"
+                    f"{' with half' if self.half else ''}")
         if self.max_batch_size < 1:
             raise ConfigError("max_batch_size must be >= 1")
         if self.max_detections < 1:

@@ -207,6 +207,9 @@ def _engine_kind(engine) -> str:
     if isinstance(engine, TorchResNetEngine):
         return "resnet"
     if isinstance(engine, TorchTemporalEngine):
+        if engine.config.model_type == "mvitv2_s":
+            raise ValueError("model_type mvitv2_s is not exported: its clip step is served "
+                             "live (TorchTemporalEngine), not from an artifact")
         return "temporal"
     raise ValueError(f"unsupported engine type {type(engine).__name__}")
 

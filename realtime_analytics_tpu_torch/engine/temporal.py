@@ -16,7 +16,9 @@ Preprocessing per family: CNN-LSTM/ConvGRU use ImageNet mean/std at
 224x224; 3D-CNN/SlowFast use mean/std 0.45/0.225 at 112x112, and
 ``slowfast_r50`` (the published SlowFast R50 8x8, ``models/slowfast.py``;
 T a multiple of 4, as PySlowFast's 32 frames at stride 2) the same at
-224x224. With
+224x224, as does ``mvitv2_s`` (the published MViTv2-S 16x4,
+``models/mvit.py``; an even T, as its 16 frames at stride 4, and a square
+crop that is a multiple of 32). With
 ``host_resize`` active (auto = on for the card, and it needs cv2) the clip
 frames are stretched on the host; otherwise the device step stretches the
 full frames: kernel B4 on the card unless ``pallas_preprocess: off``, else
@@ -38,9 +40,10 @@ every frame, a stack, or host resize, and the padding to the bucket) and
 a ``clip_step`` span (the upload, the forward, the top-5 and logits coming
 back). ``stats`` (``ClipStats``) counts calls, clips, the clips' frames
 packed on the host, those the native gather copied and the bytes
-uploaded, always, and the model's convs run as stacked 2D convs
-(``models/slowfast.py``). ``predict_clips(..., return_logits=True)`` also
-returns the fp32 logits the step computed, clip by clip.
+uploaded, always, the model's convs run as stacked 2D convs
+(``models/slowfast.py``) and its attentions run on B8 (``models/mvit.py``).
+``predict_clips(..., return_logits=True)`` also returns the fp32 logits
+the step computed, clip by clip.
 
 The pack writes a call's clips into the engine's reused staging buffers
 (``ClipStaging``), pinned on the card up to ``PIN_BYTES`` an engine.
@@ -58,6 +61,7 @@ import numpy as np
 import torch
 
 from ..config import ConfigError, DetectorConfig
+from ..models.mvit import fused_attentions
 from ..models.onnx_graph_model import graph_dtype, load_graph_fallback
 from ..models.resnet import IMAGENET_MEAN, IMAGENET_STD
 from ..models.slowfast import stacked_convs
@@ -87,7 +91,8 @@ from .detector import (
 logger = logging.getLogger(__name__)
 
 TOP_K = 5  # reference emits top-5 actions per clip
-NORM_045 = ("3d_cnn", "slow_fast", "slowfast_r50")  # mean/std 0.45/0.225 (Kinetics)
+# mean/std 0.45/0.225 (Kinetics, PySlowFast's DATA.MEAN/STD)
+NORM_045 = ("3d_cnn", "slow_fast", "slowfast_r50", "mvitv2_s")
 PIN_BYTES = 256 << 20  # an engine's staging buffers pinned in host memory, at most
 
 
@@ -99,7 +104,9 @@ class ClipStats:
     with numpy or resizes), and the bytes of the clip arrays uploaded
     (padding included); ``stacked_convs``, the model's convs run as 2D convs
     over stacked frames so far, warmup included (``models/slowfast.py``: the
-    two stems a step on the card)."""
+    two stems a step on the card); ``fused_attentions``, the model's block
+    attentions run on B8 so far, warmup included (``models/mvit.py``: every
+    block a step on the card)."""
 
     calls: int = 0
     clips: int = 0
@@ -107,6 +114,7 @@ class ClipStats:
     frames_gathered: int = 0
     bytes_uploaded: int = 0
     stacked_convs: int = 0
+    fused_attentions: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
 
     def add(self, calls: int = 0, clips: int = 0, frames: int = 0, nbytes: int = 0,
@@ -164,7 +172,7 @@ class ClipStaging:
 
 
 class TorchTemporalEngine(PreparedState, BaseDetector):
-    """CNN-LSTM / 3D-CNN / ConvGRU / SlowFast engine."""
+    """CNN-LSTM / 3D-CNN / ConvGRU / SlowFast / MViT engine."""
 
     _step_span = "clip_step"
 
@@ -176,10 +184,11 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
         self.config = config
         self.device = pick_device(config)
         fp32_means_fp32(self.device)
-        self.model = build_temporal(
-            config.model_type, config.num_action_classes, config.temporal_pooling
-        )
         self.input_hw: Tuple[int, int] = config.resolved_input_size
+        self.model = build_temporal(
+            config.model_type, config.num_action_classes, config.temporal_pooling,
+            t_len=config.sequence_length, crop=self.input_hw[0],
+        )
         self.compute_dtype = compute_dtype_of(config)
         if config.model_type in NORM_045:
             mean, std = (0.45, 0.45, 0.45), (0.225, 0.225, 0.225)
@@ -300,6 +309,7 @@ class TorchTemporalEngine(PreparedState, BaseDetector):
         x = x.reshape(b, self.config.sequence_length, th, tw, 3)
         out = self.net(x).to(torch.float32)
         self.stats.stacked_convs = stacked_convs(self.model)
+        self.stats.fused_attentions = fused_attentions(self.model)
         probs = torch.softmax(out, dim=-1)
         scores, classes = torch.topk(probs, min(TOP_K, probs.shape[-1]), dim=-1)
         return (scores, classes, out) if logits else (scores, classes)

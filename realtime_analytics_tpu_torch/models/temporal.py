@@ -1,7 +1,8 @@
 """Temporal action-recognition models: CNN-LSTM, ConvGRU, 3D-CNN, SlowFast.
 
 (``build_temporal`` also builds ``slowfast_r50``, the published SlowFast R50
-of ``models/slowfast.py``, which has no JAX counterpart.)
+of ``models/slowfast.py``, and ``mvitv2_s``, the published MViTv2-S of
+``models/mvit.py``, which have no JAX counterpart.)
 
 Counterpart of ``realtime_analytics_tpu/models/temporal.py``: the same
 widths, parameter names and arithmetic, so a JAX params tree maps onto
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .layers import ConvAct, Dense, load_param, max_pool, to_numpy
+from .mvit import MViT, MViTSpec
 from .slowfast import SlowFastR50, SlowFastSpec
 
 
@@ -246,7 +248,11 @@ class SlowFast(nn.Module):
         return self.fc(torch.cat([slow, fast], dim=-1).float())
 
 
-def build_temporal(model_type: str, num_classes: int, pooling: str = "avg") -> nn.Module:
+def build_temporal(model_type: str, num_classes: int, pooling: str = "avg", t_len: int = 16,
+                   crop: int = 224) -> nn.Module:
+    """The temporal model ``model_type``. ``t_len`` and ``crop``: the clip
+    ``mvitv2_s`` sizes its relative-position tables for (the other models
+    take any)."""
     if model_type == "cnn_lstm":
         return CNNLSTM(num_classes=num_classes, pooling=pooling)
     if model_type == "conv_gru":
@@ -257,4 +263,6 @@ def build_temporal(model_type: str, num_classes: int, pooling: str = "avg") -> n
         return SlowFast(num_classes=num_classes)
     if model_type == "slowfast_r50":
         return SlowFastR50(SlowFastSpec(num_classes=num_classes))
+    if model_type == "mvitv2_s":
+        return MViT(MViTSpec(num_frames=t_len, crop=crop, num_classes=num_classes))
     raise ValueError(f"unsupported temporal model_type: {model_type}")

@@ -41,7 +41,10 @@ SlowFast R50 (``models/slowfast.py``) reads PySlowFast's ``model_state``
 layout (``slowfast_params_from_state_dict``: every BatchNorm3d folded into
 its conv in fp32, eps 1e-5); ``slowfast_manifest`` lists that layout's keys
 and shapes for a spec and ``slowfast_seeded_state_dict`` fills it from a
-seed.
+seed. MViTv2 (``models/mvit.py``) reads PySlowFast's MViT ``model_state``
+key for key (``mvit_params_from_state_dict``: its tree is that flat
+layout, in fp32); ``mvit_manifest`` and ``mvit_seeded_state_dict`` are its
+layout and seeded weights.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ import torch
 from torch import nn
 
 from .layers import ConvAct
+from .mvit import MViT, MViTSpec
 from .resnet import ResNetModel
 from .slowfast import SlowFastR50, SlowFastSpec, conv_names
 from .yolo import STRIDES, V5_ANCHORS, YoloModel
@@ -546,6 +550,8 @@ def temporal_params_from_state_dict(model: nn.Module, sd: Mapping[str, np.ndarra
         return tree
     if kind == "SlowFastR50":
         return slowfast_params_from_state_dict(model, sd)
+    if kind == "MViT":
+        return mvit_params_from_state_dict(model, sd)
     if kind == "SlowFast":
         return {
             "slow": {f"c{j}": _t_conv3d(sd, f"slow.c{j}") for j in (1, 2, 3)},
@@ -614,9 +620,12 @@ def temporal_params_from_jax(model: nn.Module, tree: Mapping) -> nn.Module:
 
 def temporal_synthetic_params(model: nn.Module, seed: int = 0) -> Dict:
     """Seeded He-scaled temporal weights (``_seeded_tree``); SlowFast R50's
-    are ``slowfast_seeded_state_dict``'s, folded."""
+    are ``slowfast_seeded_state_dict``'s, folded, MViT's
+    ``mvit_seeded_state_dict``'s."""
     if isinstance(model, SlowFastR50):
         return slowfast_params_from_state_dict(model, slowfast_seeded_state_dict(model.spec, seed))
+    if isinstance(model, MViT):
+        return mvit_params_from_state_dict(model, mvit_seeded_state_dict(model.spec, seed))
     return _seeded_tree(model, seed)
 
 
@@ -741,3 +750,56 @@ def slowfast_params_from_state_dict(model: SlowFastR50, sd: Mapping) -> Dict:
         node[last] = _fold_conv3d_bn(sd, name)
     tree["head"] = {"projection": _t_dense(sd, "head.projection")}
     return tree
+
+
+# ---------------------------------------------------------------------------
+# MViTv2: PySlowFast's MViT model_state layout
+# ---------------------------------------------------------------------------
+
+SEED_LN_GAMMA = (0.8, 1.2)  # the seeded LayerNorms' weights (``mvit_seeded_state_dict``)
+
+
+def mvit_manifest(spec: MViTSpec = MViTSpec()) -> Dict[str, tuple]:
+    """Every key and shape of PySlowFast's MViT ``model_state`` for ``spec``,
+    in its order."""
+    with torch.device("meta"):
+        model = MViT(spec)
+    return {k: tuple(v.shape) for k, v in model.state_dict().items()}
+
+
+def mvit_seeded_state_dict(spec: MViTSpec = MViTSpec(), seed: int = 0,
+                           device="cpu") -> Dict[str, torch.Tensor]:
+    """A PySlowFast MViT ``model_state`` for ``spec`` from ``seed``, fp32 on
+    ``device``, drawn from one ``torch.Generator`` (a normal and a uniform
+    over every element, split key by key): a LayerNorm's weight in
+    ``SEED_LN_GAMMA``, every bias ``0.1 N``, every other tensor (linears,
+    convs, the pools, the relative-position tables, the cls token)
+    ``N / sqrt(fan_in)`` over all its axes but the first, so each branch
+    adds about its input's scale and the relative-position bias is of the
+    logits' order. The same seed gives the same state on one kind of
+    device."""
+    manifest = mvit_manifest(spec)
+    sizes = [int(np.prod(s)) for s in manifest.values()]
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    normal = torch.randn(sum(sizes), generator=gen, device=device)
+    uniform = torch.rand(sum(sizes), generator=gen, device=device)
+    sd: Dict[str, torch.Tensor] = {}
+    at = 0
+    for (key, shape), size in zip(manifest.items(), sizes):
+        n, u = normal[at:at + size].view(shape), uniform[at:at + size].view(shape)
+        at += size
+        if key.endswith(".bias"):
+            sd[key] = 0.1 * n
+        elif len(shape) == 1:  # a LayerNorm's weight
+            lo, hi = SEED_LN_GAMMA
+            sd[key] = lo + (hi - lo) * u
+        else:
+            sd[key] = n * (1.0 / np.sqrt(np.prod(shape[1:])))
+    return sd
+
+
+def mvit_params_from_state_dict(model: MViT, sd: Mapping) -> Dict[str, np.ndarray]:
+    """PySlowFast's MViT ``model_state`` (numpy or torch) -> ``model``'s
+    params tree (the same flat keys, fp32); a missing key raises
+    ``KeyError``."""
+    return {name: _np(sd[name]).astype(np.float32) for name, _ in model.named_parameters()}

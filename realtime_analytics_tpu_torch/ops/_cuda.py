@@ -30,8 +30,8 @@ counts its launch without a lock (``LaunchCounter``).
 Each kernel is also a registered torch op in the ``rva`` namespace
 (``rva::row_gather``, ``rva::decode_v8_levels``, ``rva::fused_stem_p1p2``,
 ``rva::letterbox``, ``rva::nms_keep_boxes``, ``rva::nms_keep``,
-``rva::conv_epilogue``; each module registers its own): a
-CUDA implementation that reaches the same C entry and counts the same
+``rva::conv_epilogue``, ``rva::rel_pos_attention``; each module registers
+its own): a CUDA implementation that reaches the same C entry and counts the same
 launch, a CPU implementation that is the plain version, and a fake one that
 gives the output's shape and dtype. ``torch.export`` keeps such an op as
 one node, so an exported serving step (``engine/export.py``) launches the
@@ -73,7 +73,7 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 # the kernels of this package, by wrapper name
 KERNELS = ("row_gather", "decode_v8", "fused_stem", "letterbox", "nms_keep",
-           "conv_epilogue")
+           "conv_epilogue", "rel_pos_attention")
 
 _route = threading.local()
 
@@ -259,11 +259,13 @@ def lib() -> ctypes.CDLL:
             handle.rva_nms_keep.argtypes = [i, p, p, p, p, i, i, i, p]
             handle.rva_nms_keep_boxes.argtypes = [i, p, p, p, p, i, i, ctypes.c_float, i, p]
             handle.rva_conv_epilogue.argtypes = [i, p, p, p, p, i64, i64, i, i, i, i, p]
+            handle.rva_rel_pos_attention.argtypes = [i, *[p] * 7, *[i] * 7,
+                                                     ctypes.c_float, p]
             handle.rva_cuda_error_string.argtypes = [i]
             handle.rva_cuda_error_string.restype = ctypes.c_char_p
             for fn in ("rva_row_gather", "rva_decode_v8_levels", "rva_fused_stem",
                        "rva_letterbox", "rva_nms_keep", "rva_nms_keep_boxes",
-                       "rva_conv_epilogue"):
+                       "rva_conv_epilogue", "rva_rel_pos_attention"):
                 getattr(handle, fn).restype = i
             _lib = handle
     return _lib

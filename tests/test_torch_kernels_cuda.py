@@ -17,15 +17,32 @@ exact, content within one uint8 level (plus one bf16 ulp in bf16) on under
 same tables in the same fp32 order without FMA contraction, and a tap of
 weight 0 that the kernel leaves out changes no bit; B6 bit-equal (a boolean
 mask: greedy is the fixpoint's unique solution), from the boxes and from an
-overlap matrix. Each registered ``rva`` op
-on CUDA tensors equals its wrapper bit for bit and counts one launch.
+overlap matrix; B8 against the plain route computed in fp32 from the same
+bf16 operands, within 0.02 + 1% of the output's largest magnitude at every
+element (the kernel rounds the softmax weights to bf16 for the PV product,
+2^-9 of a weight, and its output once to bf16, 2^-9 of up to |q| + |v|; the
+sums run in another order), and its mean error within 2e-3. Each
+registered ``rva`` op on CUDA tensors equals its wrapper bit for bit and
+counts one launch. The published MViTv2-S forward in bf16 on two clips
+against the plain fp32 reference (``tests/plain_mvit.py``): within the
+benchmark cell's limits.
 """
+
+import json
+import math
+import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+from realtime_analytics_tpu_torch.models.mvit import MViTSpec
 from realtime_analytics_tpu_torch.ops import _cuda
+from realtime_analytics_tpu_torch.ops.attention import (
+    rel_pos_attention,
+    rel_pos_attention_plain,
+)
 from realtime_analytics_tpu_torch.ops.decode import (
     decode_instantiation,
     decode_v8_level,
@@ -559,3 +576,87 @@ def test_each_op_equals_its_wrapper_on_the_card(card):
     got = _launches_of("nms_keep",
                        lambda: torch.ops.rva.nms_keep_boxes(boxes, valid, 0.45))
     assert torch.equal(got, nms_keep_boxes(boxes, valid, 0.45))
+
+
+# B8: every distinct block of MViTv2-S as (heads, q grid, k/v grid), and one
+# small odd shape (Nq and Nk far from a tile's multiple, three heads)
+B8_SHAPES = sorted({(s.heads, s.q_thw, s.kv_thw) for s in MViTSpec().blocks()})
+B8_ODD = (3, (2, 3, 5), (1, 2, 3))
+
+
+def _b8_inputs(card, b, heads, q_thw, kv_thw, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    nq, nk = 1 + math.prod(q_thw), 1 + math.prod(kv_thw)
+
+    def bf(*shape):
+        return torch.randn(*shape, generator=g, device=card).to(torch.bfloat16)
+
+    return (bf(b, heads, nq, 96), bf(b, heads, nk, 96), bf(b, heads, nk, 96),
+            bf(b, heads, nq - 1, kv_thw[0]), bf(b, heads, nq - 1, kv_thw[1]),
+            bf(b, heads, nq - 1, kv_thw[2]))
+
+
+@pytest.mark.parametrize("shape", [*B8_SHAPES, B8_ODD])
+@pytest.mark.parametrize("b", [1, 32])
+def test_rel_pos_attention_matches_plain(card, b, shape):
+    heads, q_thw, kv_thw = shape
+    ops = _b8_inputs(card, b, heads, q_thw, kv_thw, seed=b + heads)
+    scale = 96 ** -0.5
+    got = _launches_of("rel_pos_attention", lambda: rel_pos_attention(*ops, scale))
+    want = rel_pos_attention_plain(*(t.float() for t in ops), scale)
+    assert got.shape == want.shape == (b, ops[0].shape[2], heads * 96)
+    err = (got.float() - want).abs()
+    assert err.max().item() <= 0.02 + 0.01 * want.abs().max().item(), err.max().item()
+    assert err.mean().item() <= 2e-3
+    # the cls row (no bias, no residual) and the last row, past a tile's multiple
+    assert torch.allclose(got[:, 0].float(), want[:, 0], atol=0.02)
+    assert torch.allclose(got[:, -1].float(), want[:, -1], atol=0.02 + 0.01 * 4)
+
+
+def test_rel_pos_attention_op_equals_its_wrapper(card):
+    ops = _b8_inputs(card, 2, *B8_ODD, seed=11)
+    got = _launches_of("rel_pos_attention",
+                       lambda: torch.ops.rva.rel_pos_attention(*ops, 96 ** -0.5))
+    assert torch.equal(got, rel_pos_attention(*ops, 96 ** -0.5))
+
+
+def test_rel_pos_attention_rejects_what_it_does_not_take(card):
+    ops = _b8_inputs(card, 2, *B8_ODD, seed=12)
+    with pytest.raises(TypeError):
+        rel_pos_attention(ops[0].float(), *ops[1:], 0.1)
+    with pytest.raises(ValueError):  # head dim 64
+        rel_pos_attention(*(t[..., :64] if i < 3 else t for i, t in enumerate(ops)), 0.1)
+    with pytest.raises(ValueError):  # a table that does not match the k/v grid
+        rel_pos_attention(*ops[:5], ops[5][..., :2], 0.1)
+
+
+def test_mvit_forward_against_the_reference(card):
+    """The published MViTv2-S in bf16 on the card (B8 in every block) against
+    the plain fp32 reference on two seeded clips, held to the benchmark
+    cell's limits."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import plain_mvit
+
+    from realtime_analytics_tpu_torch.models import weights
+    from realtime_analytics_tpu_torch.models.mvit import MViT, fused_attentions
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs", "mvitv2-s-16x4-224-bf16.json")) as f:
+        config = json.load(f)
+    sd = weights.mvit_seeded_state_dict(MViTSpec(), seed=5)
+    model = MViT(MViTSpec())
+    weights.temporal_params_from_jax(model, weights.mvit_params_from_state_dict(model, sd))
+    model.to(card, torch.bfloat16).eval()
+    clips = torch.randint(0, 256, (2, 16, 224, 224, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(5))
+    ref = plain_mvit.MViT(config, sd, device=card)
+    want = plain_mvit.logits(ref, clips)
+    x = plain_mvit.preprocess(clips).permute(0, 2, 3, 4, 1).contiguous()
+    with torch.inference_mode():
+        got = model(x.to(card, torch.bfloat16)).cpu()
+    assert fused_attentions(model) == 16
+    diff = (got - want).abs()
+    scale = want.std(dim=1, keepdim=True)
+    limits = config["limits"]
+    assert (100 * diff.amax(dim=1) / scale[:, 0]).max().item() <= limits["logit_err"]
+    assert (100 * diff.pow(2).mean(dim=1).sqrt() / scale[:, 0]).max().item() <= limits["logit_rms"]
